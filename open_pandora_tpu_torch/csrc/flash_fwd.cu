@@ -24,35 +24,17 @@
 // the column-strided reads are free of bank conflicts. At D = 512 (the VAE's
 // single head) the key tile shrinks so q, k and v tiles fit in the 227 KB
 // of opt-in dynamic shared memory. Moving the two products to mma/wgmma is
-// the next step for speed.
+// the next step for speed. The key-tile loop is `attn_stream` in
+// common.cuh, shared with the packed attention kernel.
 #include "common.cuh"
 
 namespace pandora {
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kThreads = 256; // 16 x 16 thread grid
-
-// Copy `rows` rows of D elements into shared memory (row pitch `ld`
-// elements) in 32-bit words; rows at or beyond `valid` are zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          long long row_stride, int valid,
-                                          int rows, int D) {
-  constexpr int kPerWord = 4 / sizeof(T);
-  const int words = D / kPerWord;
-  for (int idx = threadIdx.x; idx < rows * words; idx += kThreads) {
-    const int r = idx / words;
-    const int w = idx - r * words;
-    uint32_t val = 0u;
-    if (r < valid)
-      val = reinterpret_cast<const uint32_t*>(src + r * row_stride)[w];
-    reinterpret_cast<uint32_t*>(dst + r * ld)[w] = val;
-  }
-}
+constexpr int kBQ = kAttnBQ;
 
 template <typename T, int DMAX, int BK>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kAttnThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int N, int M, int H, int D,
@@ -61,19 +43,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long vsb, long long vsn, long long vsh,
                  float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = D + 2;  // padded row pitch (elements)
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kBQ * ld;
-  T* sV = sK + BK * ld;
-  float* sS = reinterpret_cast<float*>(sV + BK * ld);  // (kBQ, BK + 1)
-  float* sM = sS + kBQ * (BK + 1);
-  float* sL = sM + kBQ;
-  float* sA = sL + kBQ;
-  constexpr int ldS = BK + 1;
-  constexpr int kSC = BK / 16;      // score columns per thread
+  const AttnSmem<T> sm = AttnSmem<T>::template carve<BK>(smem, D);
   constexpr int kNJ = DMAX / 32;    // output column pairs per thread
-  constexpr int kRowsPerWarp = kBQ / (kThreads / 32);
-  constexpr int kLaneCols = (BK + 31) / 32;
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -81,139 +52,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
   const int q_offset = causal ? (M - N) : 0;
 
-  load_rows(sQ, ld, q + b * qsb + q0 * qsn + h * qsh, qsn, min(kBQ, N - q0),
-            kBQ, D);
-  if (tid < kBQ) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
-  }
-
-  float acc[4][kNJ][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j][0] = acc[i][j][1] = 0.f;
+  load_rows(sm.q, sm.ld, q + b * qsb + q0 * qsn + h * qsh, qsn,
+            min(kBQ, N - q0), kBQ, D);
 
   // Key tiles wholly above the diagonal contribute nothing. Skipping them is
   // exact only when every row keeps at least one key (M >= N).
   int kv_end = M;
   if (causal && q_offset >= 0) kv_end = min(M, q0 + kBQ + q_offset);
 
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    const int kvalid = min(BK, M - k0);
-    __syncthreads();
-    load_rows(sK, ld, k + b * ksb + k0 * ksn + h * ksh, ksn, kvalid, BK, D);
-    load_rows(sV, ld, v + b * vsb + k0 * vsn + h * vsh, vsn, kvalid, BK, D);
-    __syncthreads();
-
-    // scores: thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
-    float s[4][kSC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kSC; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; d += 2) {
-      float2 qv[4], kv[kSC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Elem<T>::load2(sQ + (ty + 16 * i) * ld + d);
-#pragma unroll
-      for (int j = 0; j < kSC; ++j) kv[j] = Elem<T>::load2(sK + (tx + 16 * j) * ld + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kSC; ++j)
-          s[i][j] = fmaf(qv[i].y, kv[j].y, fmaf(qv[i].x, kv[j].x, s[i][j]));
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kSC; ++j)
-        sS[(ty + 16 * i) * ldS + tx + 16 * j] = s[i][j] * scale;
-    __syncthreads();
-
-    // online softmax, one warp per row
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const int row = q0 + r;
-      float vals[kLaneCols];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < kLaneCols; ++t) {
-        const int c = lane + 32 * t;
-        const int col = k0 + c;
-        float x = -INFINITY;  // beyond the key edge: weight exactly 0
-        if (c < BK && col < M) {
-          x = sS[r * ldS + c];
-          if (causal && col > row + q_offset) x = kMaskValue;
-        }
-        vals[t] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: column k0 is valid
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < kLaneCols; ++t) {
-        const int c = lane + 32 * t;
-        if (c < BK) {
-          const float p = expf(vals[t] - m_new);
-          sum += p;
-          // the product with v uses p in the element type, as the TPU
-          // kernel does (p.astype(v.dtype)); the row sum stays fp32
-          sS[r * ldS + c] = Elem<T>::round(p);
-        }
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sA[r] = alpha;
-        sL[r] = alpha * sL[r] + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = alpha * acc + p v
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) alpha[i] = sA[ty + 16 * i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        acc[i][j][0] *= alpha[i];
-        acc[i][j][1] *= alpha[i];
-      }
-    for (int c = 0; c < kvalid; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sS[(ty + 16 * i) * ldS + c];
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int col = 2 * (tx + 16 * j);
-        if (col < D) {
-          const float2 vv = Elem<T>::load2(sV + c * ld + col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][j][0] = fmaf(p[i], vv.x, acc[i][j][0]);
-            acc[i][j][1] = fmaf(p[i], vv.y, acc[i][j][1]);
-          }
-        }
-      }
-    }
-  }
+  float acc[4][kNJ][2];
+  attn_stream<T, DMAX, BK>(sm, acc, k + b * ksb + h * ksh, ksn,
+                           v + b * vsb + h * vsh, vsn, M, D, q0, kv_end,
+                           scale, causal, q_offset);
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     const int row = q0 + r;
     if (row >= N) continue;
-    const float l = sL[r];
+    const float l = sm.l[r];
     const float inv = l == 0.f ? 1.f : 1.f / l;
     T* orow = o + ((static_cast<long long>(b) * N + row) * H + h) * D;
 #pragma unroll
@@ -225,7 +84,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (tid < kBQ && q0 + tid < N)
     lse[(static_cast<long long>(b) * H + h) * N + q0 + tid] =
-        sM[tid] + logf(fmaxf(sL[tid], 1e-37f));
+        sm.m[tid] + logf(fmaxf(sm.l[tid], 1e-37f));
 }
 
 template <typename T, int DMAX, int BK>
@@ -233,19 +92,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int N, int M, int H, int D,
                    const long long* st, float scale, int causal,
                    cudaStream_t stream) {
-  const int ld = D + 2;
-  const size_t smem = static_cast<size_t>(kBQ + 2 * BK) * ld * sizeof(T) +
-                      static_cast<size_t>(kBQ) * (BK + 1) * sizeof(float) +
-                      3 * kBQ * sizeof(float);
+  const size_t smem = attn_smem_bytes<T, BK>(D);
   auto kernel = flash_fwd_kernel<T, DMAX, BK>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   dim3 grid((N + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kAttnThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       N, M, H, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],

@@ -43,6 +43,9 @@ from open_pandora_tpu_torch.pipeline.tokenizers import load_clip_tokenizer
 KERNEL_CLASSES = (
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("small_attn_fwd", ("small_attn_fwd_kernel",)),
+    ("packed_attn_fwd", ("packed_attn_kernel",)),
+    ("fused_temporal_attn", ("fused_temporal_kernel",)),
+    ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("softmax", ("softmax",)),

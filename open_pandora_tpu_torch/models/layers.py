@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from open_pandora_tpu_torch.ops.fused_norms import fused_group_norm_silu
 from open_pandora_tpu_torch.ops.norms import group_norm, layer_norm
 
 
@@ -39,7 +40,10 @@ class PointwiseConv(nn.Module):
 
 
 class GroupNorm32(nn.Module):
-    """GroupNorm(32) with fp32 statistics over channel-last input."""
+    """GroupNorm(32) with fp32 statistics over channel-last input. In eval,
+    bf16 activations route through fused_group_norm_silu (the GroupNorm+SiLU
+    kernel on a CUDA device); training takes the plain version, since the
+    kernel is forward-only."""
 
     def __init__(self, channels: int, eps: float):
         super().__init__()
@@ -48,8 +52,11 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, num_groups=32,
-                          eps=self.eps, silu=silu)
+        if self.training:
+            return group_norm(x, self.weight, self.bias, num_groups=32,
+                              eps=self.eps, silu=silu)
+        return fused_group_norm_silu(x.contiguous(), self.weight, self.bias,
+                                     num_groups=32, eps=self.eps, silu=silu)
 
 
 class LayerNorm(nn.Module):

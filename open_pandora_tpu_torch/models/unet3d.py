@@ -1,15 +1,24 @@
 """DynamiCrafter UNet3D, channel-last: the spatial stream is (b*t, h, w, c),
-the temporal stream (b*h*w, t, c).
+the temporal stream (b, t, h*w, c) on the fused route and (b*h*w, t, c)
+elsewhere.
 
-Counterpart of open_pandora_tpu/models/unet3d.py along its unfused route
-(the route the JAX package takes off the TPU or with PANDORA_DISABLE_FUSED):
-every attention goes through the dispatcher, every norm through the plain
-fp32-statistics GroupNorm/LayerNorm. On a CUDA device that sends the
-spatial self-attention at 2560 and 640 tokens to the flash kernel and every
-temporal self-attention (t = 16) to the small-attention kernel. Module and
-parameter names follow the reference state dict
+Counterpart of open_pandora_tpu/models/unet3d.py, with its two routes:
+  - fused (bf16, eval, `kernels.fused_available(x)`: a CUDA device, as the
+    JAX package's default route asks for a TPU): every GroupNorm takes the
+    GroupNorm+SiLU kernel; the spatial attn1 and the dual text + image attn2
+    at 2560 and 640 tokens take the packed attention kernel on the packed
+    (b, n, h*d) projections; the temporal transformers up to 640 channels
+    run attn1 and attn2 each as one fused temporal kernel on the native
+    stream; the 1280-channel temporal sites take the small-attention kernel.
+  - unfused (fp32, training, or a CPU tensor; the JAX package's route off
+    the TPU or with PANDORA_DISABLE_FUSED): every attention goes through
+    the dispatcher (flash at 2560 and 640 tokens and small attention at
+    t = 16 on a CUDA device), every norm through the plain fp32-statistics
+    GroupNorm/LayerNorm.
+Module and parameter names follow the reference state dict
 (`input_blocks.1.0.in_layers.0.weight`, `...transformer_blocks.0.attn2.to_k_ip`,
-`temopral_conv` with the reference's spelling).
+`temopral_conv` with the reference's spelling); both routes read the same
+parameters.
 """
 
 from __future__ import annotations
@@ -25,8 +34,28 @@ from open_pandora_tpu_torch.diffusion.schedule import timestep_embedding
 from open_pandora_tpu_torch.models.layers import (Conv2d, GroupNorm32,
                                                   LayerNorm, PointwiseConv,
                                                   nearest_up2)
+from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.attention import attention
 from open_pandora_tpu_torch.ops.attention_xla import causal_mask
+from open_pandora_tpu_torch.ops.fused_temporal import (
+    fused_temporal_eligible, fused_temporal_self_attention)
+from open_pandora_tpu_torch.ops.packed_attention import (
+    dual_cross_attention_packed, packed_attention_eligible,
+    self_attention_packed)
+
+
+def _fused_route(module: nn.Module, x: torch.Tensor) -> bool:
+    """The JAX fast paths' common gate: bf16 activations, eval (JAX's
+    `deterministic`), and a device the fused kernels serve."""
+    return (not module.training and x.dtype == torch.bfloat16
+            and kernels.fused_available(x))
+
+
+def fused_temporal_ok(module: nn.Module, x: torch.Tensor, t: int, dim: int,
+                      inner: int) -> bool:
+    """`_fused_temporal_ok` (models/unet3d.py:375-384): the fused route and
+    the fused temporal kernel's shape gate."""
+    return _fused_route(module, x) and fused_temporal_eligible(t, dim, inner)
 
 
 class CrossAttention(nn.Module):
@@ -62,26 +91,36 @@ class CrossAttention(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, _ = x.shape
-        q = self._heads(self.to_q(x))
+        q = self.to_q(x)
+        inner = q.shape[-1]
+        fast = _fused_route(self, x)
         if self.image_cross_attention and context is not None:
             ctx_text = context[:, :self.text_context_len]
             ctx_img = context[:, self.text_context_len:]
-            # default JAX route on the TPU: packed `_kernel` through
-            # dual_cross_attention_packed (ops/packed_attention.py), not yet
-            # ported
-            out = attention(q, self._heads(self.to_k(ctx_text)),
-                            self._heads(self.to_v(ctx_text)))
-            out_ip = attention(q, self._heads(self.to_k_ip(ctx_img)),
-                               self._heads(self.to_v_ip(ctx_img)))
+            k, v = self.to_k(ctx_text), self.to_v(ctx_text)
+            k_ip, v_ip = self.to_k_ip(ctx_img), self.to_v_ip(ctx_img)
             gate = (torch.tanh(self.alpha) + 1.0 if hasattr(self, "alpha")
                     else 1.0)
-            out = out + gate * out_ip
+            if fast and packed_attention_eligible(
+                    n, (k.shape[1], k_ip.shape[1]), self.heads, inner):
+                # packed attention kernel, both streams and the gate in one
+                out = dual_cross_attention_packed(q, k, v, k_ip, v_ip, gate,
+                                                  heads=self.heads)
+            else:
+                qh = self._heads(q)
+                out = attention(qh, self._heads(k), self._heads(v))
+                out_ip = attention(qh, self._heads(k_ip), self._heads(v_ip))
+                out = out + gate * out_ip
         else:
             ctx = x if context is None else context[:, :self.text_context_len]
-            # default JAX route on the TPU: packed `_kernel` through
-            # self_attention_packed (ops/packed_attention.py), not yet ported
-            out = attention(q, self._heads(self.to_k(ctx)),
-                            self._heads(self.to_v(ctx)), mask=mask)
+            k, v = self.to_k(ctx), self.to_v(ctx)
+            if fast and mask is None and packed_attention_eligible(
+                    n, (k.shape[1],), self.heads, inner):
+                # packed attention kernel
+                out = self_attention_packed(q, k, v, heads=self.heads)
+            else:
+                out = attention(self._heads(q), self._heads(k),
+                                self._heads(v), mask=mask)
         return self.to_out[0](out.reshape(b, n, -1))
 
 
@@ -109,14 +148,19 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """pre-LN self-attention -> cross-attention -> GEGLU feed-forward. With
-    no context, attn2 self-attends on norm2(x)."""
+    no context, attn2 self-attends on norm2(x). With `fused_temporal` (the
+    temporal sites), no context and no mask, on the fused route, attn1 and
+    attn2 each run as one fused temporal kernel (LN, q/k/v, attention over
+    t, out-projection, residual) on x of (B, t, c) or the native
+    (b, t, hw, c); the feed-forward is row-order agnostic."""
 
     def __init__(self, dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None,
                  image_cross_attention: bool = False,
                  image_ca_scale_learnable: bool = False,
-                 text_context_len: int = 77):
+                 text_context_len: int = 77, fused_temporal: bool = False):
         super().__init__()
+        self.fused_temporal = fused_temporal
         self.attn1 = CrossAttention(dim, heads, dim_head)
         self.attn2 = CrossAttention(
             dim, heads, dim_head, context_dim=context_dim,
@@ -130,8 +174,19 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 self_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x), None, mask=self_mask)
-        x = x + self.attn2(self.norm2(x), context)
+        a1 = self.attn1
+        if (self.fused_temporal and context is None and self_mask is None
+                and fused_temporal_ok(self, x, x.shape[1], x.shape[-1],
+                                      a1.heads * a1.dim_head)):
+            for attn, norm in ((self.attn1, self.norm1),
+                               (self.attn2, self.norm2)):
+                x = fused_temporal_self_attention(
+                    x, attn.to_q.weight, attn.to_k.weight, attn.to_v.weight,
+                    attn.to_out[0].weight, attn.to_out[0].bias, norm.weight,
+                    norm.bias, heads=attn.heads, eps=norm.eps)
+        else:
+            x = x + self.attn1(self.norm1(x), None, mask=self_mask)
+            x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
 
@@ -156,8 +211,7 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         bt, h, w, c = x.shape
-        # default JAX route on the TPU: fused_norms `_kernel` for this GN
-        # (ops/fused_norms.py), not yet ported
+        # bf16 eval on a CUDA device: the GroupNorm+SiLU kernel
         y = self.proj_in(self.norm(x).reshape(bt, h * w, c))
         for blk in self.transformer_blocks:
             y = blk(y, context)
@@ -165,9 +219,13 @@ class SpatialTransformer(nn.Module):
 
 
 class TemporalTransformer(nn.Module):
-    """Self-attention over the t axis, batched over b*h*w (transpose
-    layout). use_linear=False keeps the reference's Conv1d(k=1) weight shape
-    for proj_in/proj_out (init_attn)."""
+    """Self-attention over the t axis of every spatial position.
+    use_linear=False keeps the reference's Conv1d(k=1) weight shape for
+    proj_in/proj_out (init_attn). Where its blocks take the fused temporal
+    kernel, the stream stays in the native (b, t, h*w, c) layout (proj_in,
+    LN and the feed-forward are row-order agnostic, and the kernel reads
+    the positions through strides); elsewhere it is transposed to
+    (b*h*w, t, c)."""
 
     def __init__(self, ch: int, heads: int, dim_head: int, depth: int,
                  causal: bool = False, use_linear: bool = True):
@@ -182,23 +240,36 @@ class TemporalTransformer(nn.Module):
             self.proj_in = PointwiseConv(ch, inner, spatial_dims=1)
             self.proj_out = PointwiseConv(inner, ch, spatial_dims=1)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, heads, dim_head)
+            BasicTransformerBlock(inner, heads, dim_head,
+                                  fused_temporal=not causal)
             for _ in range(depth))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, c = x.shape
+        blk0 = self.transformer_blocks[0].attn1
+        inner = blk0.heads * blk0.dim_head
         y = self.norm(x)
-        y = y.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
+        # The JAX package stays native only where h*w % 32 == 0 (its
+        # kernel's position tile); the port's kernel takes a ragged last
+        # tile, so every fused site stays native. Row order does not change
+        # the result.
+        native = not self.causal and fused_temporal_ok(self, y, t, inner,
+                                                       inner)
+        if native:
+            y = y.reshape(b, t, h * w, c)
+        else:
+            y = y.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
         y = self.proj_in(y)
         mask = causal_mask(t, t, x.device) if self.causal else None
         for blk in self.transformer_blocks:
-            # default JAX route on the TPU: fused_temporal `_kernel`
-            # (ops/fused_temporal.py) where c * inner <= 640 * 1280, not yet
-            # ported; here attn1 and attn2 each take the small-attention
-            # kernel on a CUDA device
+            # the fused temporal kernel where c * inner <= 640 * 1280, else
+            # attn1 and attn2 take the small-attention kernel on a CUDA
+            # device
             y = blk(y, None, self_mask=mask)
-        y = self.proj_out(y).reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
-        return x + y
+        y = self.proj_out(y)
+        if native:
+            return x + y.reshape(b, t, h, w, c)
+        return x + y.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
 
 
 class TConv3(nn.Module):
@@ -233,7 +304,7 @@ class TemporalConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
         for layers in (self.conv1, self.conv2, self.conv3, self.conv4):
-            # default JAX route on the TPU: fused_norms `_kernel` for GN+SiLU
+            # bf16 eval on a CUDA device: the GroupNorm+SiLU kernel
             h = layers[-1](layers[0](h, silu=True))
         return x + h
 
@@ -259,8 +330,7 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 batch_size: int) -> torch.Tensor:
-        # default JAX route on the TPU: fused_norms `_kernel` for both
-        # GN+SiLU, not yet ported
+        # bf16 eval on a CUDA device: the GroupNorm+SiLU kernel, both norms
         h = self.in_layers[2](self.in_layers[0](x, silu=True))
         e = self.emb_layers[1](F.silu(emb))
         h = h + e[:, None, None, :]

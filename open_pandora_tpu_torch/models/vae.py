@@ -2,9 +2,11 @@
 
 Counterpart of open_pandora_tpu/models/vae.py. Module and parameter names
 follow the reference state dict (`encoder.down.0.block.1.norm1.weight`,
-`decoder.mid.attn_1.q.weight`, ...). GroupNorm eps is 1e-6 throughout; the
-mid-block attention is one head of width C through the attention
-dispatcher (the flash kernel at h*w >= 512 on a CUDA device).
+`decoder.mid.attn_1.q.weight`, ...). GroupNorm eps is 1e-6 throughout; in
+bf16 eval on a CUDA device every GroupNorm takes the GroupNorm+SiLU kernel.
+The mid-block attention is one head of width C through the attention
+dispatcher (the flash kernel at h*w >= 512 on a CUDA device; its width
+fails the packed kernel's head gate, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -35,8 +37,7 @@ class ResnetBlock(nn.Module):
                              if in_ch != out_ch else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # default JAX route on the TPU: fused_norms `_kernel` for GN+SiLU
-        # (ops/fused_norms.py), not yet ported
+        # bf16 eval on a CUDA device: the GroupNorm+SiLU kernel
         h = self.conv1(self.norm1(x, silu=True))
         h = self.conv2(self.norm2(h, silu=True))
         if self.nin_shortcut is not None:

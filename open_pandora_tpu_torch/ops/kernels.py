@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 The sources are compiled by nvcc for sm_90a into one shared library with a
-plain C interface, loaded through ctypes. The build runs on first use, into
-`build/` at the repository root, under a name keyed on a hash of the
-sources and flags, so a second run loads the library it finds. Nothing is
-compiled or loaded when this module is imported.
+plain C interface, loaded through ctypes: one nvcc process per source, all
+started together, then one link. The build runs on first use, into `build/`
+at the repository root, under a name keyed on a hash of the sources and
+flags, so a second run loads the library it finds. Nothing is compiled or
+loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,6 +36,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pandora_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P],
     "pandora_small_attn_fwd": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _I, _P],
+    "pandora_group_norm_silu": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "pandora_packed_attn_fwd": [_P] * 7 + [_I] * 7 + [_L] * 12
+    + [_F, _F, _I, _P],
+    "pandora_fused_temporal_attn": [_P] * 9 + [_I] * 5 + [_L] * 8
+    + [_F, _F, _I, _P],
 }
 
 
@@ -63,21 +70,43 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it already exists.
-    The ptxas report (registers, shared memory, spills) is kept beside it
-    as a .log file."""
+    """Compile csrc/*.cu into the shared library unless it already exists:
+    every source in its own nvcc process, all at once, then one link. The
+    ptxas report (registers, shared memory, spills) is kept beside it as a
+    .log file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = out.with_name(f"{out.stem}.{src.stem}.{tag}.o")
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{text}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out.with_name(f"{out.name}.{tag}")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        out.with_suffix(".log").write_text("".join(log))
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -90,6 +119,36 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def fused_available(x: torch.Tensor) -> bool:
+    """Whether the fused kernels of the JAX package's default bf16 eval
+    route (GroupNorm+SiLU, packed attention, fused temporal attention) serve
+    x: true on a CUDA device. Counterpart of `_fused_available`
+    (open_pandora_tpu/models/unet3d.py) and `_fused_gn_available`
+    (ops/fused_norms.py), which ask for a TPU. Callers read it through this
+    module, so a test can monkeypatch it in one place."""
+    return x.is_cuda
+
+
+def check_cuda_tensors(name: str, *tensors: torch.Tensor) -> None:
+    """All on the first tensor's CUDA device and outside autograd: the
+    kernels are forward-only, and their outputs carry no gradient."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: every tensor must be on one CUDA device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel is forward-only; call it "
+                           "under torch.no_grad()")
+
+
+def check_aligned(name: str, t: torch.Tensor, nbytes: int) -> None:
+    """t's data pointer and every stride but the last (unit) one are
+    multiples of nbytes."""
+    if (t.stride(-1) != 1 or t.data_ptr() % nbytes
+            or any((s * t.element_size()) % nbytes for s in t.stride()[:-1])):
+        raise ValueError(f"{name}: rows must be contiguous and {nbytes}-byte "
+                         f"aligned, got strides {t.stride()}")
 
 
 def check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
