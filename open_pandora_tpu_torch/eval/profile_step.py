@@ -1,4 +1,5 @@
-"""Where the device time of one image-to-video clip goes, on one CUDA card.
+"""Where the device time of one image-to-video clip and of one training
+step goes, on one CUDA card.
 
 Run from the repository root:
 
@@ -12,6 +13,9 @@ the three parts of `eval.inference.synthesize` at 320x512x16f:
   unet_eval     one batched-CFG UNet eval (cond and uncond as batch 2), the
                 work of one DDIM step
   decode        the 16-frame VAE decode in 8-frame chunks
+  train_step    one `dynamicrafter` finetune step (train.step) at batch 1:
+                frozen VAE encode and encoders, the UNet forward, its
+                checkpoint recompute and backward, clip and AdamW
 
 For each part it prints one JSON line: the wall time of the first call
 (`cold_wall_ms`) and the mean of `--calls` later calls (`wall_ms`), both on
@@ -38,11 +42,14 @@ from open_pandora_tpu_torch.core.config import PandoraConfig
 from open_pandora_tpu_torch.eval.inference import (build_model,
                                                    diffusion_preprocess)
 from open_pandora_tpu_torch.pipeline.tokenizers import load_clip_tokenizer
+from open_pandora_tpu_torch.train.step import TrainState, make_finetune_step
 
 # (class, substrings of the lower-cased kernel name); the first match wins
 KERNEL_CLASSES = (
     ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("small_attn_fwd", ("small_attn_fwd_kernel",)),
+    ("small_attn_bwd", ("small_attn_bwd_kernel",)),
     ("packed_attn_fwd", ("packed_attn_kernel",)),
     ("fused_temporal_attn", ("fused_temporal_kernel",)),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
@@ -52,6 +59,7 @@ KERNEL_CLASSES = (
     ("reduction", ("reduce", "welford", "layer_norm", "group_norm")),
     ("copy", ("copy", "catarray", "transpose")),
     ("elementwise", ("elementwise",)),
+    ("foreach", ("multi_tensor_apply",)),   # the clip and AdamW
 )
 
 
@@ -82,7 +90,9 @@ def profile_part(name: str, fn, calls: int) -> dict:
         torch.cuda.synchronize()
     by_class, by_name, launches = {}, {}, 0
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a user annotation (the optimizer's step range) spans kernels that
+        # are counted on their own
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         ms = e.self_device_time_total / 1e3 / calls
         by_name[e.key] = ms
@@ -153,6 +163,22 @@ def main(argv=None) -> int:
         )
         for name, fn in parts:
             print(json.dumps(profile_part(name, fn, args.calls)), flush=True)
+
+    tcfg = cfg.train
+    state = TrainState.create(model, "dynamicrafter", tcfg)
+    step = make_finetune_step(model, tcfg)
+    t, (h, w), c = tcfg.video_length, (tcfg.height, tcfg.width), \
+        cfg.clip_vision.image_size
+    video = rng.uniform(-1, 1, (1, t, h, w, 3)).astype(np.float32)
+    batch = {"video": video, "cond_frames": video[:, :1],
+             "cond_images": rng.random((1, c, c, 3), np.float32),
+             "text_tokens": np.asarray([tokenizer(
+                 "synthetic clip 0", cfg.clip_text.context_length)]),
+             "fps": np.asarray([8])}
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    print(json.dumps(profile_part(
+        "train_step", lambda: step(state, batch, generator=gen),
+        args.calls)), flush=True)
     return 0
 
 

@@ -15,6 +15,14 @@ Counterpart of open_pandora_tpu/models/unet3d.py, with its two routes:
     the dispatcher (flash at 2560 and 640 tokens and small attention at
     t = 16 on a CUDA device), every norm through the plain fp32-statistics
     GroupNorm/LayerNorm.
+In training mode (`module.training`, JAX's `deterministic=False`) the
+unfused route adds dropout at the JAX sites (attention out-projections, the
+GEGLU feed-forward and the ResBlocks at `cfg.dropout`, the temporal conv
+blocks at 0.1) and, with `cfg.use_checkpoint`, recomputes every ResBlock,
+SpatialTransformer and TemporalTransformer in the backward
+(torch.utils.checkpoint, the JAX package's nn.remat). Dropout draws from
+the global RNG, whose state the checkpoint saves and restores, so the
+recomputed masks are the forward's.
 Module and parameter names follow the reference state dict
 (`input_blocks.1.0.in_layers.0.weight`, `...transformer_blocks.0.attn2.to_k_ip`,
 `temopral_conv` with the reference's spelling); both routes read the same
@@ -27,6 +35,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from open_pandora_tpu_torch.core.config import UNet3DConfig
@@ -68,7 +77,7 @@ class CrossAttention(nn.Module):
                  context_dim: Optional[int] = None,
                  image_cross_attention: bool = False,
                  image_ca_scale_learnable: bool = False,
-                 text_context_len: int = 77):
+                 text_context_len: int = 77, dropout: float = 0.0):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = context_dim or query_dim
@@ -78,7 +87,8 @@ class CrossAttention(nn.Module):
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(ctx_dim, inner, bias=False)
         self.to_v = nn.Linear(ctx_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim),
+                                     nn.Dropout(dropout)])
         if image_cross_attention:
             self.to_k_ip = nn.Linear(ctx_dim, inner, bias=False)
             self.to_v_ip = nn.Linear(ctx_dim, inner, bias=False)
@@ -121,7 +131,7 @@ class CrossAttention(nn.Module):
             else:
                 out = attention(self._heads(q), self._heads(k),
                                 self._heads(v), mask=mask)
-        return self.to_out[0](out.reshape(b, n, -1))
+        return self.to_out[1](self.to_out[0](out.reshape(b, n, -1)))
 
 
 class GEGLU(nn.Module):
@@ -135,15 +145,15 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward: net.0 (GEGLU), net.2 (Linear)."""
+    """GEGLU feed-forward: net.0 (GEGLU), net.1 (dropout), net.2 (Linear)."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(dropout),
                                   nn.Linear(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+        return self.net[2](self.net[1](self.net[0](x)))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -158,16 +168,17 @@ class BasicTransformerBlock(nn.Module):
                  context_dim: Optional[int] = None,
                  image_cross_attention: bool = False,
                  image_ca_scale_learnable: bool = False,
-                 text_context_len: int = 77, fused_temporal: bool = False):
+                 text_context_len: int = 77, fused_temporal: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.fused_temporal = fused_temporal
-        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.attn1 = CrossAttention(dim, heads, dim_head, dropout=dropout)
         self.attn2 = CrossAttention(
             dim, heads, dim_head, context_dim=context_dim,
             image_cross_attention=image_cross_attention,
             image_ca_scale_learnable=image_ca_scale_learnable,
-            text_context_len=text_context_len)
-        self.ff = FeedForward(dim)
+            text_context_len=text_context_len, dropout=dropout)
+        self.ff = FeedForward(dim, dropout=dropout)
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
@@ -195,7 +206,8 @@ class SpatialTransformer(nn.Module):
 
     def __init__(self, ch: int, heads: int, dim_head: int, depth: int,
                  context_dim: int, image_cross_attention: bool,
-                 image_ca_scale_learnable: bool, text_context_len: int):
+                 image_ca_scale_learnable: bool, text_context_len: int,
+                 dropout: float = 0.0):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(ch, 1e-6)
@@ -205,7 +217,7 @@ class SpatialTransformer(nn.Module):
                 inner, heads, dim_head, context_dim=context_dim,
                 image_cross_attention=image_cross_attention,
                 image_ca_scale_learnable=image_ca_scale_learnable,
-                text_context_len=text_context_len)
+                text_context_len=text_context_len, dropout=dropout)
             for _ in range(depth))
         self.proj_out = nn.Linear(inner, ch)
 
@@ -228,7 +240,8 @@ class TemporalTransformer(nn.Module):
     (b*h*w, t, c)."""
 
     def __init__(self, ch: int, heads: int, dim_head: int, depth: int,
-                 causal: bool = False, use_linear: bool = True):
+                 causal: bool = False, use_linear: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         inner = heads * dim_head
         self.causal = causal
@@ -241,7 +254,7 @@ class TemporalTransformer(nn.Module):
             self.proj_out = PointwiseConv(inner, ch, spatial_dims=1)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, heads, dim_head,
-                                  fused_temporal=not causal)
+                                  fused_temporal=not causal, dropout=dropout)
             for _ in range(depth))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -291,7 +304,8 @@ class TConv3(nn.Module):
 
 
 class TemporalConvBlock(nn.Module):
-    """4 x (GN + SiLU + TConv3), residual."""
+    """4 x (GN + SiLU [+ dropout 0.1, as the JAX package hard-codes it, in
+    conv2-4] + TConv3), residual."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -299,13 +313,14 @@ class TemporalConvBlock(nn.Module):
                                     TConv3(ch)])
         for i in (2, 3, 4):
             self.add_module(f"conv{i}", nn.ModuleList([
-                GroupNorm32(ch, 1e-5), nn.SiLU(), nn.Dropout(), TConv3(ch)]))
+                GroupNorm32(ch, 1e-5), nn.SiLU(), nn.Dropout(0.1),
+                TConv3(ch)]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x
-        for layers in (self.conv1, self.conv2, self.conv3, self.conv4):
-            # bf16 eval on a CUDA device: the GroupNorm+SiLU kernel
-            h = layers[-1](layers[0](h, silu=True))
+        # bf16 eval on a CUDA device: the GroupNorm+SiLU kernel
+        h = self.conv1[2](self.conv1[0](x, silu=True))
+        for layers in (self.conv2, self.conv3, self.conv4):
+            h = layers[3](layers[2](layers[0](h, silu=True)))
         return x + h
 
 
@@ -314,14 +329,14 @@ class ResBlock(nn.Module):
     temporal conv block over (b, t, h, w, c)."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
-                 use_temporal_conv: bool):
+                 use_temporal_conv: bool, dropout: float = 0.0):
         super().__init__()
         self.in_layers = nn.ModuleList([GroupNorm32(in_ch, 1e-5), nn.SiLU(),
                                         Conv2d(in_ch, out_ch, 3, padding=1)])
         self.emb_layers = nn.ModuleList([nn.SiLU(),
                                          nn.Linear(emb_dim, out_ch)])
         self.out_layers = nn.ModuleList([
-            GroupNorm32(out_ch, 1e-5), nn.SiLU(), nn.Dropout(),
+            GroupNorm32(out_ch, 1e-5), nn.SiLU(), nn.Dropout(dropout),
             Conv2d(out_ch, out_ch, 3, padding=1)])
         self.skip_connection = (PointwiseConv(in_ch, out_ch)
                                 if in_ch != out_ch else None)
@@ -334,7 +349,8 @@ class ResBlock(nn.Module):
         h = self.in_layers[2](self.in_layers[0](x, silu=True))
         e = self.emb_layers[1](F.silu(emb))
         h = h + e[:, None, None, :]
-        h = self.out_layers[3](self.out_layers[0](h, silu=True))
+        h = self.out_layers[3](self.out_layers[2](
+            self.out_layers[0](h, silu=True)))
         if self.skip_connection is not None:
             x = self.skip_connection(x)
         h = x + h
@@ -381,7 +397,7 @@ class UNetModel(nn.Module):
                                                 nn.Linear(ted, ted)])
 
         def res(cin, cout):
-            return ResBlock(cin, cout, ted, cfg.temporal_conv)
+            return ResBlock(cin, cout, ted, cfg.temporal_conv, cfg.dropout)
 
         def spatial(ch):
             return SpatialTransformer(
@@ -389,14 +405,15 @@ class UNetModel(nn.Module):
                 cfg.transformer_depth, cfg.context_dim,
                 cfg.image_cross_attention,
                 cfg.image_cross_attention_scale_learnable,
-                cfg.text_context_len)
+                cfg.text_context_len, cfg.dropout)
 
         def temporal(ch, heads=None, use_linear=True):
             heads = heads if heads is not None else ch // cfg.num_head_channels
             return TemporalTransformer(ch, heads, cfg.num_head_channels,
                                        cfg.transformer_depth,
                                        causal=cfg.use_causal_attention,
-                                       use_linear=use_linear)
+                                       use_linear=use_linear,
+                                       dropout=cfg.dropout)
 
         inputs = [nn.ModuleList([Conv2d(cfg.in_channels, mc, 3, padding=1)])]
         if cfg.addition_attention:
@@ -449,14 +466,26 @@ class UNetModel(nn.Module):
 
     def _run(self, block: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor,
              ctx: torch.Tensor, b: int) -> torch.Tensor:
+        # gradient checkpointing in training (the reference's checkpoint
+        # wrapper, common.py:81-94; the JAX package's nn.remat)
+        remat = (self.training and self.cfg.use_checkpoint
+                 and torch.is_grad_enabled())
+
+        def call(layer, *args):
+            if remat:
+                return torch.utils.checkpoint.checkpoint(
+                    layer, *args, use_reentrant=False)
+            return layer(*args)
+
         for layer in block:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb, b)
+                h = call(layer, h, emb, b)
             elif isinstance(layer, SpatialTransformer):
-                h = layer(h, ctx)
+                h = call(layer, h, ctx)
             elif isinstance(layer, TemporalTransformer):
                 bt, sh, sw, c = h.shape
-                h = layer(h.reshape(b, bt // b, sh, sw, c)).reshape(h.shape)
+                h = call(layer, h.reshape(b, bt // b, sh, sw, c)
+                         ).reshape(h.shape)
             else:
                 h = layer(h)
         return h

@@ -182,6 +182,16 @@ class DiagonalGaussian:
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def sample(self, generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * eps, eps ~ N(0, 1) of the mean's shape and dtype,
+        drawn from `generator` unless given."""
+        if eps is None:
+            eps = torch.randn(self.mean.shape, generator=generator,
+                              device=self.mean.device, dtype=self.mean.dtype)
+        std = torch.exp(0.5 * self.logvar)
+        return self.mean + std * eps.to(self.mean.device, self.mean.dtype)
+
 
 class AutoencoderKL(nn.Module):
     def __init__(self, cfg: VAEConfig):
@@ -207,17 +217,24 @@ def _frame_chunks(t: int, frame_chunk: int):
 
 
 def encode_video(vae: AutoencoderKL, video: torch.Tensor, *,
-                 scale_factor: float = 0.18215,
-                 frame_chunk: int = 1) -> torch.Tensor:
+                 scale_factor: float = 0.18215, frame_chunk: int = 1,
+                 generator: Optional[torch.Generator] = None,
+                 eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """video (b, t, h, w, c) -> latents (b, t, h/8, w/8, z) * scale, encoded
-    `frame_chunk` frames at a time; the posterior's mode (deterministic
-    conditioning, the JAX package's default)."""
+    `frame_chunk` frames at a time. The posterior's mode (deterministic
+    conditioning, the JAX package's default) unless a generator or the
+    noise `eps` is given: then one sample of the whole posterior, as the
+    reference's training does (ddpm3d.py:595-602)."""
     b, t, h, w, c = video.shape
-    z = []
+    moments = []
     for s, e in _frame_chunks(t, frame_chunk):
-        m = vae.encode(video[:, s:e].reshape(b * (e - s), h, w, c)).mode()
-        z.append(m.reshape(b, e - s, *m.shape[1:]))
-    return torch.cat(z, dim=1) * scale_factor
+        x = vae.quant_conv(vae.encoder(
+            video[:, s:e].reshape(b * (e - s), h, w, c)))
+        moments.append(x.reshape(b, e - s, *x.shape[1:]))
+    post = DiagonalGaussian.from_params(torch.cat(moments, dim=1))
+    if generator is None and eps is None:
+        return post.mode() * scale_factor
+    return post.sample(generator, eps) * scale_factor
 
 
 def decode_video(vae: AutoencoderKL, z: torch.Tensor, *,

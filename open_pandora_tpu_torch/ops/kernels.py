@@ -35,7 +35,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "pandora_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F, _I, _I, _P],
+    "pandora_flash_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P],
     "pandora_small_attn_fwd": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _I, _P],
+    "pandora_small_attn_bwd": [_P] * 7 + [_I] * 5 + [_L] * 12
+    + [_F, _I, _P],
     "pandora_group_norm_silu": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "pandora_packed_attn_fwd": [_P] * 7 + [_I] * 7 + [_L] * 12
     + [_F, _F, _I, _P],

@@ -119,5 +119,7 @@ def test_released_structure_key_set():
 def test_config_defaults_match():
     ours, theirs = tcfg.PandoraConfig(), jcfg.PandoraConfig()
     for f in dataclasses.fields(ours):
-        assert dataclasses.asdict(getattr(ours, f.name)) == \
-            dataclasses.asdict(getattr(theirs, f.name)), f.name
+        mine, ref = getattr(ours, f.name), getattr(theirs, f.name)
+        if dataclasses.is_dataclass(mine):
+            mine, ref = dataclasses.asdict(mine), dataclasses.asdict(ref)
+        assert mine == ref, f.name

@@ -301,7 +301,8 @@ def test_full_width_eval_routes_as_predicted(monkeypatch):
     got = {k: calls.count(k) for k in chip_smoke.KERNEL_KEYS}
     want = chip_smoke.predicted_launches(cfg, 320, 512, 1, frame_chunk=8,
                                          fused=True)["per_eval"]
-    assert got == want == {"flash": 0, "small": 12, "packed": 20,
+    assert got == want == {"flash": 0, "flash_bwd": 0, "small": 12,
+                           "small_bwd": 0, "packed": 20,
                            "fused_temporal": 22, "group_norm": 166}
 
 

@@ -175,7 +175,13 @@ def test_port_imports_without_jax():
             "sys.modules['flax'] = None; sys.modules['optax'] = None; "
             "import open_pandora_tpu_torch.eval.inference; "
             "import open_pandora_tpu_torch.core.convert; "
-            "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
-            "if sys.modules[m] is not None]")
+            "import open_pandora_tpu_torch.train.trainer; "
+            "import open_pandora_tpu_torch.train.step; "
+            "import open_pandora_tpu_torch.core.checkpoint; "
+            "import open_pandora_tpu_torch.data.webvid; "
+            "import open_pandora_tpu_torch.utils.loggers; "
+            "import open_pandora_tpu_torch.pipeline.tokenizers; "
+            "assert not [m for m in sys.modules if sys.modules[m] is not None"
+            " and m.split('.')[0] in ('jax', 'open_pandora_tpu')]")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

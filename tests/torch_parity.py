@@ -44,7 +44,10 @@ def to_jax(tree):
 
 
 def jax_sub_config(cfg):
-    """The JAX package's dataclass of the same name and values."""
+    """The JAX package's dataclass of the same name and values (a plain
+    field value as it is)."""
+    if not dataclasses.is_dataclass(cfg):
+        return cfg
     return getattr(jcfg, type(cfg).__name__)(**dataclasses.asdict(cfg))
 
 
