@@ -9,25 +9,39 @@ Phases, each printing its own lines and raising on failure:
   1. env      torch / CUDA versions, the card's name and power limit
   2. build    nvcc builds the kernel library from csrc/ (or loads it)
   3. kernels  each CUDA kernel against its plain PyTorch version at every
-              shape of the slices' main paths, plus ragged cases (and fp32
-              ones for the kernels that take fp32); the backward kernels'
-              dq, dk and dv each; kernel, plain and (where one PyTorch
-              call computes the same function) library times from CUDA
-              events, beside the bound (the least time for the work)
+              shape of the slices' main paths (320x512 and 576x1024), plus
+              ragged cases (and fp32 ones for the kernels that take fp32);
+              the packed kernel in its long-key regime and the dual
+              cross-attention kernel under their own names; the backward
+              kernels' dq, dk and dv each; kernel, plain and (where one
+              PyTorch call computes the same function) library times from
+              CUDA events, beside the bound (the least time for the work);
+              shapes a gate refuses raise in the wrapper
   4. model    a narrow DynamiCrafter at 320x512x16f: in fp32, DDIM-2 on the
               card (unfused route) against the same weights and noise on
               the CPU; in bf16, one CFG UNet eval and one 8-frame decode
               chunk on the card (the fused route) and on the CPU (the
-              unfused route), both against fp32 on the CPU; in fp32, one
-              finetune step on the card against the CPU (loss, gradients)
+              unfused route), both against fp32 on the CPU, and the same
+              UNet eval at head width 48 (the dual cross-attention route);
+              in fp32, one finetune step on the card against the CPU (loss,
+              gradients); a narrow WorldModel in fp32: the cluster indices
+              and the conditioning of a 2-round prompt, card against CPU
   5. slice    the full-width PandoraConfig() in bf16 through
               eval.inference.synthesize (the fused route); launch counts
-              against the routing
+              against the routing; then (5b) one full-width CFG UNet eval
+              at head width 80, where attn2 takes the dual cross-attention
+              kernel
   6. train    the full-width PandoraConfig() in bf16 through the trainer
               (train.trainer.run, stage dynamicrafter, synthetic data,
               3 steps at 320x512x16f); seconds per step, peak memory,
               losses, gradients at a spatial and a temporal attention
               projection, launch counts against the routing
+  7. world    the full-width PandoraConfig() WorldModel in bf16 (32-layer
+              LLaMA, 24-layer CLIP tower, 12-layer Q-Former, the diffusion
+              stack) through pipeline.chat_wm.ChatWM at 576x1024, two
+              rounds of DDIM-4: per round the conditioning's parts, seconds
+              per DDIM step, decode, the spliced prompt length; frames,
+              peak memory, launch counts against the routing
 The last three lines are the card's name and power limit, the kernels'
 JSON summary and the run's JSON result.
 """
@@ -63,6 +77,12 @@ KERNELS = {
                        "open_pandora_tpu/ops/small_attention.py:74"),
     "packed_attn_fwd": ("packed", CSRC + "packed_attn_fwd.cu",
                         "open_pandora_tpu/ops/packed_attention.py:104"),
+    # the same kernel in its long-key regime (an online softmax across the
+    # TPU kernel's key blocks), counted and checked on its own
+    "packed_multi": ("packed_multi", CSRC + "packed_attn_fwd.cu",
+                     "open_pandora_tpu/ops/packed_attention.py:170"),
+    "dual_cross": ("dual_cross", CSRC + "dual_cross_attn_fwd.cu",
+                   "open_pandora_tpu/ops/dual_cross_attention.py:45"),
     "fused_temporal_attn": ("fused_temporal", CSRC + "fused_temporal_attn.cu",
                             "open_pandora_tpu/ops/fused_temporal.py:33"),
     "group_norm_silu": ("group_norm", CSRC + "group_norm_silu.cu",
@@ -72,21 +92,28 @@ KERNEL_KEYS = tuple(key for key, _, _ in KERNELS.values())
 # the kernels each main path runs
 EVAL_KEYS = ("flash", "small", "packed", "fused_temporal", "group_norm")
 TRAIN_KEYS = ("flash", "flash_bwd", "small", "small_bwd", "group_norm")
+WORLD_KEYS = EVAL_KEYS + ("packed_multi",)      # a ChatWM round at 576x1024
+WIDE_HEAD_KEYS = ("flash", "small", "dual_cross", "group_norm")
 
 
 def wrappers() -> dict:
     """The kernel wrappers by launch-count key; each counts its launches."""
+    from open_pandora_tpu_torch.ops.dual_cross_attention import (
+        dual_cross_attention)
     from open_pandora_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd)
     from open_pandora_tpu_torch.ops.fused_norms import fused_group_norm_silu
     from open_pandora_tpu_torch.ops.fused_temporal import (
         fused_temporal_self_attention)
-    from open_pandora_tpu_torch.ops.packed_attention import packed_attention
+    from open_pandora_tpu_torch.ops.packed_attention import (
+        packed_attention, packed_attention_multi)
     from open_pandora_tpu_torch.ops.small_attention import (
         small_attention, small_attention_bwd)
     return {"flash": flash_attention, "flash_bwd": flash_attention_bwd,
             "small": small_attention, "small_bwd": small_attention_bwd,
             "packed": packed_attention,
+            "packed_multi": packed_attention_multi,
+            "dual_cross": dual_cross_attention,
             "fused_temporal": fused_temporal_self_attention,
             "group_norm": fused_group_norm_silu}
 
@@ -221,6 +248,11 @@ def check_kernels(device, gen) -> dict:
         (32, 2560, 2560, 2, 32, f32, False),    # narrow model (phase 4)
         (1, 2560, 2560, 1, 128, f32, False),    # narrow VAE mid (phase 4)
         (8, 2560, 2560, 1, 512, f32, False),
+        (2, 9216, 9216, 1, 512, bf16, False),   # VAE mid at 576x1024, chunk 2
+        (1, 9216, 9216, 1, 512, bf16, False),   # VAE encode at 576x1024
+        (32, 2560, 2560, 4, 80, bf16, False),   # attn1 at head width 80 (5b)
+        (32, 640, 640, 8, 80, bf16, False),
+        (32, 2560, 2560, 2, 48, bf16, False),   # head width 48 (phase 4)
     ]
     small_cases = [
         (320, 16, 16, 20, 64, bf16),   # 1280-channel temporal, 10x16
@@ -232,6 +264,12 @@ def check_kernels(device, gen) -> dict:
         (5120, 16, 16, 2, 32, f32),    # narrow model (phase 4)
         (5120, 16, 16, 8, 32, f32),
         (100, 7, 16, 3, 48, f32),      # ragged N < M
+        (1152, 16, 16, 20, 64, bf16),  # 1280-channel temporal at 576x1024
+        (288, 16, 16, 20, 64, bf16),
+        (5120, 16, 16, 4, 80, bf16),   # temporal sites at head width 80 (5b)
+        (5120, 16, 16, 8, 80, bf16),   # init_attn, 8 heads of 80
+        (320, 16, 16, 16, 80, bf16),
+        (5120, 16, 16, 2, 48, bf16),   # head width 48 (phase 4)
     ]
     summary = {}
 
@@ -280,8 +318,10 @@ def check_kernels(device, gen) -> dict:
         small_cases, False)
     check_attention_bwd(summary, device, gen)
     check_packed(summary, device, gen)
+    check_dual_cross(summary, device, gen)
     check_fused_temporal(summary, device, gen)
     check_group_norm(summary, device, gen)
+    check_refusals(device)
     return summary
 
 
@@ -384,13 +424,26 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
         del q, k, v, do, args
 
 
+def _by_batch(fn, chunk: int):
+    """fn applied to batch slices of `chunk` samples, results concatenated:
+    the plain versions hold the (B, H, N, M) scores in fp32, which at
+    (32, 9216, 9216, 5 heads) is 54 GB in one piece."""
+    def run(*tensors):
+        b = tensors[0].shape[0]
+        return torch.cat([fn(*[t[i:i + chunk] for t in tensors])
+                          for i in range(0, b, chunk)])
+    return run
+
+
 def check_packed(summary: dict, device, gen) -> None:
     from open_pandora_tpu_torch.ops.packed_attention import (
-        packed_attention, packed_attention_plain)
+        packed_attention, packed_attention_plain, packed_regime)
 
     bf16 = torch.bfloat16
     # (B, N, H, D, key rows per stream, gate, dtype); attn1 and attn2 of
-    # the 2560- and 640-token spatial transformers, then ragged cases
+    # the spatial transformers at 320x512 (2560, 640 tokens) and 576x1024
+    # (9216, 2304, 576), then ragged cases. The regime names the kernel's
+    # row: "multi" where the TPU needs its online-softmax kernel.
     cases = [
         (32, 2560, 5, 64, (2560,), 1.0, bf16),
         (32, 640, 10, 64, (640,), 1.0, bf16),
@@ -402,15 +455,28 @@ def check_packed(summary: dict, device, gen) -> None:
         (32, 640, 4, 32, (77, 16), 1.0, bf16),
         (2, 1000, 2, 128, (300,), 1.0, bf16),    # M not a tile multiple
         (2, 1000, 2, 128, (100, 130), 0.25, bf16),
+        (32, 2304, 10, 64, (2304,), 1.0, bf16),  # 576x1024, level 1
+        (32, 576, 20, 64, (576,), 1.0, bf16),    # level 2
+        (32, 9216, 5, 64, (77, 16), 1.0, bf16),  # attn2 at level 0
+        (32, 2304, 10, 64, (77, 16), 1.0, bf16),
+        (32, 576, 20, 64, (77, 16), 1.0, bf16),
+        # the long-key regime: level 0 at 576x1024; a ragged stream whose M
+        # is a multiple of neither 64 nor 1024; head widths 32 and 128
+        (32, 9216, 5, 64, (9216,), 1.0, bf16),
+        (2, 1100, 10, 64, (3000,), 1.0, bf16),
+        (2, 1000, 4, 32, (3000,), 1.0, bf16),
+        (2, 1000, 2, 128, (2700,), 1.0, bf16),
     ]
     for B, N, H, D, ms, gate, dt in cases:
         hd = H * D
+        multi = packed_regime(N, ms, H) == "multi"
 
         def rnd(rows):
             return torch.randn(B, rows, hd, generator=gen,
                                device=device).to(dt)
         q = rnd(N)
         streams = [(rnd(m), rnd(m)) for m in ms]
+        flat = [t for kv in streams for t in kv]
         # the gate as the model hands it: a float, or a tensor when learnable
         g = gate if gate == 1.0 else torch.tensor(gate, device=device)
         library = None
@@ -421,17 +487,101 @@ def check_packed(summary: dict, device, gen) -> None:
 
             def library():
                 return F.scaled_dot_product_attention(qs, ks, vs)
-        _check(summary, "packed_attn_fwd",
+
+        def plain(q, *kv):
+            return packed_attention_plain(q, list(zip(kv[::2], kv[1::2])), g,
+                                          heads=H)
+        # at most about 4 GB of fp32 scores per slice
+        plain = _by_batch(plain, max(1, int(1e9 // (H * N * sum(ms)))))
+        _check(summary, "packed_multi" if multi else "packed_attn_fwd",
                {"shape": [B, N, H, D], "M": list(ms), "gate": gate,
                 "dtype": str(dt).replace("torch.", "")},
                lambda: packed_attention(q, streams, g, heads=H),
-               lambda: packed_attention_plain(q, streams, g, heads=H),
-               lambda: packed_attention_plain(
-                   q.float(), [(k.float(), v.float()) for k, v in streams],
-                   g, heads=H),
+               lambda: plain(q, *flat),
+               lambda: plain(q.float(), *[t.float() for t in flat]),
                ((2 * N + 2 * sum(ms)) * B * hd * 2,
                 4 * B * N * sum(ms) * hd, dt), library)
-        del q, streams, library
+        del q, streams, flat, library
+
+
+def check_dual_cross(summary: dict, device, gen) -> None:
+    from open_pandora_tpu_torch.ops.dual_cross_attention import (
+        dual_cross_attention, dual_cross_attention_plain)
+
+    # (B, N, H, D, (text keys, image keys), gate): attn2 at head width 80
+    # (phase 5b: 320 and 640 channels at 320x512), a learnable gate, a
+    # ragged N with both streams off the tile, head width 48 (phase 4), and
+    # level 0 at 576x1024
+    cases = [
+        (32, 2560, 4, 80, (77, 16), 1.0),
+        (32, 640, 8, 80, (77, 16), 1.0),
+        (32, 2560, 4, 80, (77, 16), 1.37),
+        (2, 1000, 3, 48, (100, 130), 0.25),
+        (32, 2560, 2, 48, (77, 16), 1.0),
+        (32, 640, 4, 48, (77, 16), 0.6),
+        (32, 9216, 4, 80, (77, 16), 1.0),
+    ]
+    for B, N, H, D, ms, gate in cases:
+        def rnd(rows):
+            # views of packed (B, rows, H*D) projections, as the UNet has
+            return torch.randn(B, rows, H * D, generator=gen, device=device
+                               ).to(torch.bfloat16).view(B, rows, H, D)
+        ts = [rnd(N)] + [rnd(m) for m in ms for _ in range(2)]
+        g = gate if gate == 1.0 else torch.tensor(gate, device=device)
+        _check(summary, "dual_cross",
+               {"shape": [B, N, H, D], "M": list(ms), "gate": gate,
+                "dtype": "bfloat16"},
+               lambda: dual_cross_attention(*ts, g),
+               lambda: dual_cross_attention_plain(*ts, g),
+               lambda: dual_cross_attention_plain(*[t.float() for t in ts],
+                                                  g),
+               ((2 * N + 2 * sum(ms)) * B * H * D * 2,
+                4 * B * N * sum(ms) * H * D, torch.bfloat16))
+        del ts
+
+
+def check_refusals(device) -> None:
+    """Shapes a gate refuses must raise in the wrapper on the card: the
+    fused temporal kernel at head widths 80 and 48 (its mma tiles serve 16,
+    32 and 64), the packed and dual cross-attention kernels at a head width
+    that is no multiple of 8."""
+    from open_pandora_tpu_torch.ops.dual_cross_attention import (
+        dual_cross_attention, dual_cross_attention_eligible)
+    from open_pandora_tpu_torch.ops.fused_temporal import (
+        fused_temporal_eligible, fused_temporal_self_attention)
+    from open_pandora_tpu_torch.ops.packed_attention import (
+        packed_attention_eligible, self_attention_packed)
+
+    def refused(gate_says, call):
+        try:
+            call()
+        except ValueError:
+            return not gate_says
+        return False
+
+    def temporal(c, heads):
+        y = torch.zeros(2, 16, 64, c, dtype=torch.bfloat16, device=device)
+        w = torch.zeros(c, c, dtype=torch.bfloat16, device=device)
+        return lambda: fused_temporal_self_attention(
+            y, w, w, w, w, w[0], w[0], w[0], heads=heads)
+
+    x = torch.zeros(2, 600, 2, 44, dtype=torch.bfloat16, device=device)
+    results = {
+        "fused_temporal_d80": refused(
+            fused_temporal_eligible(16, 320, 320, 4), temporal(320, 4)),
+        "fused_temporal_d48": refused(
+            fused_temporal_eligible(16, 96, 96, 2), temporal(96, 2)),
+        "packed_d44": refused(
+            packed_attention_eligible(600, (600,), 2, 88),
+            lambda: self_attention_packed(*[x.view(2, 600, 88)] * 3,
+                                          heads=2)),
+        "dual_cross_d44": refused(
+            dual_cross_attention_eligible(600, 600, 600, 44),
+            lambda: dual_cross_attention(x, x, x, x, x, 1.0)),
+    }
+    log("kernels", json.dumps({"refused_by_gate_and_wrapper": results}))
+    if not all(results.values()):
+        raise AssertionError(f"a refused shape launched: {results}")
 
 
 def check_fused_temporal(summary: dict, device, gen) -> None:
@@ -450,6 +600,9 @@ def check_fused_temporal(summary: dict, device, gen) -> None:
         ((2, 16, 640, 128), 4),
         ((2, 16, 37, 320), 5),
         ((100, 16, 640), 10),
+        ((2, 16, 9216, 320), 5),      # 576x1024, level 0
+        ((2, 16, 9216, 512), 8),      # init_attn
+        ((2, 16, 2304, 640), 10),     # level 1
     ]
     for shape, heads in cases:
         y, params = fused_temporal_inputs(shape, gen, device)
@@ -509,6 +662,11 @@ def check_group_norm(summary: dict, device, gen) -> None:
         ((8, 40, 64, 512), 1e-6, False),        # VAE mid attention norm
         ((1, 320, 512, 128), 1e-6, True),       # VAE encode
         ((3, 1000, 96), 1e-5, True),            # ragged splits, 3 ch/group
+        ((32, 72, 128, 320), 1e-5, True),       # 576x1024: ResBlock, level 0
+        ((32, 72, 128, 960), 1e-5, True),       # decoder concat, level 0
+        ((2, 16, 72, 128, 320), 1e-5, True),    # temporal conv, 47M / sample
+        ((2, 576, 1024, 128), 1e-6, True),      # VAE decode chunk, 75M / sample
+        ((1, 576, 1024, 128), 1e-6, True),      # VAE encode
     ]
     for shape, eps, silu in cases:
         c = shape[-1]
@@ -622,16 +780,31 @@ def check_model(device, seed: int) -> None:
         raise AssertionError(f"card launches {launches} != predicted {want}")
 
 
-def check_model_bf16(device, seed: int) -> None:
+def wide_head_narrow_config():
+    """narrow_config() at head width 48 (96 and 192 channels, 2 and 4
+    heads): a width that does not divide 128, so attn2 takes the dual
+    cross-attention kernel, attn1 the flash kernel and every temporal site
+    the small-attention kernel."""
+    import dataclasses
+    cfg = narrow_config()
+    return dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, model_channels=96, num_head_channels=48))
+
+
+def check_model_bf16(device, seed: int, cfg=None, decode: bool = True,
+                     must_launch=("packed", "fused_temporal", "group_norm")
+                     ) -> None:
     """bf16: one CFG UNet eval and one 8-frame decode chunk on the card (the
     fused route) and on the CPU (the unfused route), each against fp32 on
     the CPU with the same bf16-rounded weights and inputs. The card passes
     where its error is within twice the CPU bf16 route's plus 1% of the
     mean |fp32 value| (the JAX package's fused_selfcheck rule,
-    ops/fused_temporal.py:189-238, applied to the model)."""
+    ops/fused_temporal.py:189-238, applied to the model). `cfg` defaults to
+    narrow_config(); `decode` False leaves the decode chunk out;
+    `must_launch` names kernels the card leg has to run."""
     from open_pandora_tpu_torch.eval.inference import build_model
 
-    cfg = narrow_config()
+    cfg = cfg or narrow_config()
     u = cfg.unet
     cpu16 = build_model(cfg, device="cpu", dtype=torch.bfloat16,
                         generator=torch.Generator().manual_seed(seed + 2))
@@ -656,7 +829,8 @@ def check_model_bf16(device, seed: int) -> None:
             eps = model.model.diffusion_model(x.to(dev, dt), steps.to(dev),
                                               ctx.to(dev, dt),
                                               fs=fs.to(dev))
-            frames = model.decode(z.to(dev, dt), frame_chunk=8)
+            frames = (model.decode(z.to(dev, dt), frame_chunk=8) if decode
+                      else eps[:0])
         if dev.type == "cuda":
             torch.cuda.synchronize()
         return eps.float().cpu(), frames.float().cpu()
@@ -670,8 +844,9 @@ def check_model_bf16(device, seed: int) -> None:
         got.setdefault("launches", read_launches())
         log("model", f"bf16 leg {name}: {time.perf_counter() - t0:.1f} s")
     launches = got.pop("launches")
-    report, ok = {"dtype": "bfloat16"}, True
-    for i, part in enumerate(("unet_eval", "decode_chunk")):
+    report, ok = {"dtype": "bfloat16",
+                  "head_width": u.num_head_channels}, True
+    for i, part in enumerate(("unet_eval", "decode_chunk")[:1 + decode]):
         ref = got["cpu_fp32"][i]
         card_err = (got["card"][i] - ref).abs().max().item()
         cpu_err = (got["cpu_bf16"][i] - ref).abs().max().item()
@@ -684,16 +859,105 @@ def check_model_bf16(device, seed: int) -> None:
                         "mean_abs_fp32": scale, "bound": bound, "ok": fine}
         ok = ok and fine
     want = predicted_launches(cfg, 320, 512, 1, frame_chunk=8, fused=True)
-    want = {k: want["per_eval"][k] + want["decode_chunk"][k]
+    want = {k: want["per_eval"][k] + decode * want["decode_chunk"][k]
             for k in KERNEL_KEYS}
     report["launches"], report["predicted"] = launches, want
     log("model", json.dumps(report))
     if not ok:
         raise AssertionError("bf16 card route disagrees with fp32 beyond "
                              "the bound")
-    if launches != want or min(launches[k] for k in
-                               ("packed", "fused_temporal", "group_norm")) <= 0:
+    if launches != want or min(launches[k] for k in must_launch) <= 0:
         raise AssertionError(f"bf16 card launches {launches} != {want}")
+
+
+# card against CPU for the narrow WorldModel's conditioning, relative to the
+# largest |value|: fp32 on both sides, TF32 off, through a 2-layer tower, the
+# clustering (equal indices, so the same tokens are averaged), a 2-layer
+# trunk and a 2-layer Q-Former; summation order only
+WORLD_BOUND_REL = 1e-4
+
+
+def narrow_world_config():
+    """narrow_config() plus a narrow LLM stack: 2 LLaMA layers (128 wide), 2
+    tower layers (the last is not run) on 224x224 images of 256 patches, the
+    product's cluster rates 64/32/16, 2 Q-Former layers, 64 prefix rows and
+    77 queries."""
+    import dataclasses
+    from open_pandora_tpu_torch.core import config as c
+    return dataclasses.replace(
+        narrow_config(),
+        llama=c.LLaMAConfig(hidden_size=128, intermediate_size=256,
+                            num_layers=2, num_heads=4),
+        clip_tower=c.CLIPTowerConfig(width=64, layers=3, heads=2),
+        qformer=c.QFormerConfig(hidden_size=64, num_layers=2, num_heads=2,
+                                intermediate_size=128),
+        connector=c.ConnectorConfig(llm_hidden=128, qformer_proj_dim=64,
+                                    proj_out_dim=64))
+
+
+def check_world(device, seed: int) -> None:
+    """fp32: the narrow WorldModel's conditioning of a 2-round prompt (an
+    image, then 16 frames as a video, bucketed texts) on the card against
+    the same weights on the CPU; the cluster indices of the image cascade
+    and the video's clustered tokens first, since one moved index would
+    show as a large gap."""
+    from open_pandora_tpu_torch.models.cluster import (cluster_dpc_knn,
+                                                       merge_tokens,
+                                                       project_video_tokens)
+    from open_pandora_tpu_torch.models.world_model import (next_round_prompt,
+                                                           round1_prompt)
+    from open_pandora_tpu_torch.pipeline.chat_wm import build_world_model
+
+    cfg = narrow_world_config()
+    cpu = build_world_model(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(seed + 6))
+    card = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(seed + 7)
+    T, size = cfg.unet.temporal_length, cfg.clip_tower.image_size
+    images = torch.from_numpy(rng.standard_normal(
+        (1, 1 + T, size, size, 3), np.float32))
+    texts, masks = [], []
+    for n in (9, 5):                    # padded to the 16-token bucket
+        ids = np.zeros((1, 16), np.int64)
+        ids[0, :n] = rng.integers(3, 31000, n)
+        texts.append(torch.from_numpy(ids))
+        masks.append(torch.arange(16)[None] < n)
+    prompt = next_round_prompt(
+        round1_prompt(texts[0], images=images, text_mask=masks[0]),
+        range(1, 1 + T), texts[1], text_mask=masks[1])
+
+    got = {}
+    for name, wm in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            feats = wm.encode_tower(images[0])
+            idx, x = [], feats[:1]
+            for r, k in zip(cfg.cluster.spatial_rates, (5, 3, 3)):
+                i, c = cluster_dpc_knn(x, r, k)
+                idx += [i.cpu(), c.cpu()]
+                x = merge_tokens(x, i, r)
+            video = project_video_tokens(feats[1:], cfg.cluster.spatial_rates,
+                                         cfg.cluster.temporal_rate)
+            cond = wm.get_diffusion_conditioning(prompt)
+        got[name] = (idx, video.cpu(), cond.cpu())
+        log("model", f"world fp32 {name}: {time.perf_counter() - t0:.1f} s")
+    (ic, vc, cc), (ir, vr, cr) = got["card"], got["cpu"]
+    same = all(torch.equal(a, b) for a, b in zip(ic, ir))
+    v_err = (vc - vr).abs().max().item()
+    c_err = (cc - cr).abs().max().item()
+    v_scale, c_scale = vr.abs().max().item(), cr.abs().max().item()
+    ok = (same and bool(torch.isfinite(cc).all())
+          and v_err <= WORLD_BOUND_REL * v_scale
+          and c_err <= WORLD_BOUND_REL * c_scale)
+    log("model", json.dumps({
+        "dtype": "float32", "world": True, "conditioning": list(cc.shape),
+        "cluster_indices_equal": same, "video_tokens_max_abs_err": v_err,
+        "video_tokens_scale": v_scale, "conditioning_max_abs_err": c_err,
+        "conditioning_scale": c_scale, "bound_rel": WORLD_BOUND_REL,
+        "ok": ok}))
+    if cc.shape != (1, 2, cfg.qformer.num_query_tokens,
+                    cfg.connector.proj_out_dim) or not ok:
+        raise AssertionError("card and CPU conditioning disagree")
 
 
 # card against CPU for one fp32 finetune step: the loss and the gradient
@@ -791,10 +1055,12 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
     counts per UNet eval ("per_eval"), per VAE encode and decode chunk, and
     for the clip (one key per kernel)."""
     from open_pandora_tpu_torch.ops.attention import attention_route
+    from open_pandora_tpu_torch.ops.dual_cross_attention import (
+        dual_cross_attention_eligible)
     from open_pandora_tpu_torch.ops.fused_temporal import (
         fused_temporal_eligible)
     from open_pandora_tpu_torch.ops.packed_attention import (
-        packed_attention_eligible)
+        packed_attention_eligible, packed_regime)
 
     def route(q, k):
         return attention_route(q, k, causal=False, masked=False,
@@ -810,12 +1076,16 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
         if fused and ch % 32 == 0:
             per_eval.extend(["group_norm"] * n)
 
+    def packed_key(n, ms, h):           # the JAX kernel the shape belongs to
+        return ("packed_multi" if packed_regime(n, ms, h) == "multi"
+                else "packed")
+
     def temporal(ds, ch, heads):        # attn1 and attn2 both self-attend
         inner = heads * d
         gn(ch)
         for _ in range(depth):
             if (fused and not u.use_causal_attention
-                    and fused_temporal_eligible(t, inner, inner)):
+                    and fused_temporal_eligible(t, inner, inner, heads)):
                 per_eval.extend(["fused_temporal"] * 2)
             else:
                 q = (b * (hz // ds) * (wz // ds), t, heads, d)
@@ -829,11 +1099,14 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
         gn(ch)
         for _ in range(depth):
             if fused and packed_attention_eligible(n, (n,), h, h * d):
-                per_eval.append("packed")
+                per_eval.append(packed_key(n, (n,), h))
             else:
                 per_eval.append(route(q, q))
             if fused and packed_attention_eligible(n, ms, h, h * d):
-                per_eval.append("packed")
+                per_eval.append(packed_key(n, ms, h))
+            elif (fused and len(ms) == 2
+                    and dual_cross_attention_eligible(n, *ms, d)):
+                per_eval.append("dual_cross")
             else:
                 per_eval.extend(route(q, (b * t, m, h, d)) for m in ms)
 
@@ -973,8 +1246,9 @@ def run_slice(device, seed: int, steps: int) -> dict:
     # temporal, 1 out); per clip the VAE adds 1 flash for the encode and 1
     # per decode chunk, and its GroupNorms (22 per encode, 30 per chunk)
     if (want["per_eval"] != {"flash": 0, "flash_bwd": 0, "small": 12,
-                             "small_bwd": 0, "packed": 20,
-                             "fused_temporal": 22, "group_norm": 166}
+                             "small_bwd": 0, "packed": 20, "packed_multi": 0,
+                             "dual_cross": 0, "fused_temporal": 22,
+                             "group_norm": 166}
             or want["encode"]["flash"] != 1
             or want["decode_chunk"]["flash"] != 1):
         raise AssertionError(f"the routing predicts {want}")
@@ -1064,6 +1338,172 @@ def run_train(device, seed: int) -> dict:
     return launches
 
 
+# -- phase 5b: head width 80, the dual cross-attention route -------------------
+
+def run_wide_heads(device, seed: int) -> dict:
+    """One CFG UNet eval of PandoraConfig()'s UNet at 320x512 with
+    num_head_channels=80 (4, 8 and 16 heads), random weights, bf16: another
+    configuration than the product's (whose heads are 64 wide), the one
+    whose attn2 the dual cross-attention kernel serves."""
+    import dataclasses
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.core.init import init_random_
+    from open_pandora_tpu_torch.models.unet3d import UNetModel
+
+    cfg = PandoraConfig()
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, num_head_channels=80))
+    u = cfg.unet
+    with torch.device("meta"):
+        unet = UNetModel(u)
+    unet = unet.to(torch.bfloat16).to_empty(device=device).eval()
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    init_random_(unet, gen)
+    T, hz, wz = u.temporal_length, 40, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device
+                           ).to(torch.bfloat16)
+    x = rnd(2, T, hz, wz, u.in_channels)
+    ctx = rnd(2, u.text_context_len + T * u.img_tokens_per_frame,
+              u.context_dim)
+    steps = torch.tensor([600, 600], device=device)
+    fs = torch.tensor([3, 3], device=device)
+
+    def run():
+        with torch.no_grad():
+            return unet(x, steps, ctx, fs=fs)
+    run()                                   # cold
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    eps = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = predicted_launches(cfg, 320, 512, 1, frame_chunk=8,
+                              fused=True)["per_eval"]
+    finite = bool(torch.isfinite(eps).all())
+    log("slice", json.dumps({
+        "wide_heads": True, "num_head_channels": 80,
+        "eps": list(eps.shape), "finite": finite,
+        "std": float(eps.float().std()), "eval_s": wall,
+        "launches": launches, "predicted": want}))
+    if eps.shape != (2, T, hz, wz, u.out_channels) or not finite:
+        raise AssertionError(f"bad eval: {eps.shape}")
+    # attn2 of the ten spatial transformers at 2560 and 640 tokens: dual
+    # cross-attention; their attn1: flash; all 34 temporal attentions: small
+    if (want["dual_cross"], want["flash"], want["small"], want["packed"],
+            want["fused_temporal"]) != (10, 10, 34, 0, 0):
+        raise AssertionError(f"the routing predicts {want}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != predicted {want}")
+    if min(launches[k] for k in WIDE_HEAD_KEYS) <= 0:
+        raise AssertionError("a kernel of the path never launched")
+    return launches
+
+
+# -- phase 7: a ChatWM session at 576x1024, full width ----------------------------
+
+WORLD_HW = (576, 1024)
+WORLD_STEPS = 4
+WORLD_TEXTS = ("the car drives forward along the coastal road",
+               "the car turns left towards the sea")
+
+
+def predicted_round(cfg, height: int, width: int, steps: int,
+                    cond_frames: int) -> dict:
+    """Kernel launches of one ChatWM round: `steps` UNet evals, one VAE
+    encode per conditioning frame, the decode in chunks of 2 (8 at 320x512).
+    The LLM conditioning launches none of these kernels: the tower (257
+    rows), the bucketed and so masked prefill and the Q-Former (77 rows)
+    all take the plain attention route, as in the JAX package."""
+    chunk = 8 if height * width <= 320 * 512 else 2
+    p = predicted_launches(cfg, height, width, steps, frame_chunk=chunk,
+                           fused=True)
+    return {k: p[k] + (cond_frames - 1) * p["encode"][k]
+            for k in KERNEL_KEYS}
+
+
+def run_world(device, seed: int) -> dict:
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.pipeline.chat_wm import (ChatWM,
+                                                         build_world_model)
+
+    cfg = PandoraConfig()
+    h, w = WORLD_HW
+    t0 = time.perf_counter()
+    wm = build_world_model(cfg, device=device, dtype=torch.bfloat16,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(seed + 9))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in wm.parameters())
+    n_llama = sum(p.numel() for n, p in wm.llama.named_parameters()
+                  if not n.startswith(("model.vision_tower",
+                                       "model.mm_projector")))
+    log("world", f"PandoraConfig() WorldModel bf16, {n_params} parameters "
+        f"({n_llama} LLaMA, {len(wm.llama.model.layers)} layers; tower "
+        f"{len(wm.clip_tower.encoder.layers)} layers run; Q-Former "
+        f"{len(wm.connector.diffusion_qformer.encoder.layer)} layers), "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    image = np.random.default_rng(seed + 10).integers(
+        0, 256, (720, 1280, 3), dtype=np.uint8)
+    chat = ChatWM(wm, height=h, width=w)
+    # record what each round hands the encoders
+    seen, real_streams = [], wm.diffusion.synthesis_streams
+
+    def streams_spy(**kw):
+        seen.append(kw["cond_frames"])
+        return real_streams(**kw)
+    wm.diffusion.synthesis_streams = streams_spy
+    torch.cuda.reset_peak_memory_stats()
+    frames, launches, total = [], [], dict.fromkeys(KERNEL_KEYS, 0)
+    for r, text in enumerate(WORLD_TEXTS):
+        reset_launches()
+        kw = dict(ddim_steps=WORLD_STEPS, seed=seed, guidance_scale=7.5,
+                  guidance_rescale=0.7, fs=3)
+        out = (chat.generate_video(image, text, **kw) if r == 0
+               else chat.generate_video_next_round(text, **kw))
+        got = read_launches()
+        want = predicted_round(cfg, h, w, WORLD_STEPS, 1 if r == 0 else 4)
+        log("world", json.dumps({
+            "round": r, **chat.round_times[r], "frames": list(out.shape),
+            "dtype": str(out.dtype), "min": int(out.min()),
+            "max": int(out.max()), "std": float(out.std()),
+            "launches": got, "predicted": want}))
+        if out.shape != (16, h, w, 3) or out.dtype != np.uint8:
+            raise AssertionError(f"bad frames: {out.shape} {out.dtype}")
+        if float(out.std()) == 0.0:
+            raise AssertionError("constant clip")
+        if got != want:
+            raise AssertionError(f"round {r}: launches {got} != {want}")
+        frames.append(out)
+        launches.append(got)
+        for k in KERNEL_KEYS:
+            total[k] += got[k]
+    peak = torch.cuda.max_memory_allocated()
+    # round 2's conditioning frames are round 1's last four, through uint8
+    chained = (seen[1].shape == (1, 4, h, w, 3) and torch.equal(
+        seen[1][0].cpu(),
+        torch.from_numpy(frames[0][-4:].astype(np.float32) / 127.5 - 1.0)))
+    spliced = [chat.round_times[r]["prompt_len"] for r in range(2)]
+    log("world", json.dumps({
+        "rounds": 2, "ddim_steps": WORLD_STEPS, "prompt_len": spliced,
+        "round2_conditions_on_round1_last4": chained,
+        "max_memory_allocated": peak, "launches": total,
+        "video": list(np.concatenate(
+            [frames[0][:12], frames[1]]).shape)}))
+    # 112 image tokens, a 16-token text bucket (bos included), 64 prefix
+    # rows; round 2 adds 112 video tokens (one event), 16 and 64
+    if spliced != [192, 384]:
+        raise AssertionError(f"spliced prompt lengths {spliced}")
+    if not chained or chat.prompt.segments[4].indices != tuple(range(1, 17)):
+        raise AssertionError("round 2 did not take round 1's frames")
+    if min(total[k] for k in WORLD_KEYS) <= 0:
+        raise AssertionError("a kernel of the path never launched")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("chip_smoke")
     p.add_argument("--seed", type=int, default=0)
@@ -1099,11 +1539,17 @@ def main(argv=None) -> int:
     summary = check_kernels(device, gen)
     check_model(device, args.seed)
     check_model_bf16(device, args.seed)
+    check_model_bf16(device, args.seed, wide_head_narrow_config(),
+                     decode=False,
+                     must_launch=("dual_cross", "flash", "small", "group_norm"))
     check_train_step(device, args.seed)
+    check_world(device, args.seed)
     paths = {"eval": run_slice(device, args.seed, args.ddim_steps),
+             "wide_heads": run_wide_heads(device, args.seed),
              "train": run_train(device, args.seed)}
+    paths["world"] = run_world(device, args.seed)
 
-    # launches: the two main paths' runs together, and each on its own
+    # launches: the main paths' runs together, and each on its own
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p[key] for p in paths.values()),

@@ -1,5 +1,5 @@
-"""Configuration of the DynamiCrafter slices (image-to-video and its
-finetune stage), with YAML loading and dotted overrides.
+"""Configuration of the ported slices (image-to-video, its finetune stage
+and the LLM conditioning), with YAML loading and dotted overrides.
 
 Counterpart of open_pandora_tpu/core/config.py for the sub-configs this
 package uses, with the same fields and defaults: the shipped Open-Pandora
@@ -99,6 +99,97 @@ class ResamplerConfig:
 
 
 @dataclass(frozen=True)
+class CLIPTowerConfig:
+    """CLIP ViT-L/14 vision tower of the LLM: hidden states of layer
+    `select_layer`, patch tokens only (256 per 224**2 image)."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    width: int = 1024
+    layers: int = 24
+    heads: int = 16
+    select_layer: int = -2
+    # "clip" (shipped); the JAX package's "eva_vit_g" waits for a later slice
+    tower_type: str = "clip"
+    mlp_ratio: float = 4.0
+
+    def __post_init__(self):
+        if self.tower_type != "clip":
+            raise NotImplementedError(
+                f"tower_type={self.tower_type!r}: the EVA tower waits for "
+                "the eval-and-tools slice; this slice ports 'clip'")
+
+
+@dataclass(frozen=True)
+class LLaMAConfig:
+    """LLaMA-7B trunk (HF LLaMA dims)."""
+
+    vocab_size: int = 32000
+    extra_tokens: int = 3          # <img_s>, <image>, [IMG_P]
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    max_position_embeddings: int = 4096
+    # LoRA adapters: 0 = off; a rank above 0 waits for the LLM training slice
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+
+    def __post_init__(self):
+        if self.lora_rank > 0:
+            raise NotImplementedError(
+                f"lora_rank={self.lora_rank}: LoRA adapters wait for the "
+                "LLM training slice (llm_sft)")
+
+    @property
+    def total_vocab(self) -> int:
+        return self.vocab_size + self.extra_tokens
+
+
+@dataclass(frozen=True)
+class ClusterConfig:
+    """DPC-KNN token clustering rates."""
+
+    spatial_rates: Tuple[int, ...] = (64, 32, 16)  # 3-stage image clustering
+    temporal_rate: float = 1.0 / 16.0              # video event clustering
+    k_knn: int = 5
+
+
+@dataclass(frozen=True)
+class QFormerConfig:
+    """BLIP-2 Q-Former: hidden 768, 12 layers, cross-attention every 2."""
+
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    cross_attention_frequency: int = 2
+    num_query_tokens: int = 77
+    layer_norm_eps: float = 1e-12
+
+
+@dataclass(frozen=True)
+class ConnectorConfig:
+    """The trainable connector between the LLM and the diffusion model."""
+
+    llm_hidden: int = 4096
+    image_prefix_length: int = 64   # rows of image_prefix used as prefix embeds
+    qformer_proj_dim: int = 768     # 4096 -> 768
+    proj_out_dim: int = 1024        # 768 -> 1024 (the UNet's context dim)
+    use_image_prefix: bool = True
+    use_diffusion_text_encoder: bool = False
+
+    def __post_init__(self):
+        if self.use_diffusion_text_encoder:
+            raise NotImplementedError(
+                "use_diffusion_text_encoder=True: the CLIP text transformer "
+                "over the connector output waits for the eval-and-tools "
+                "slice (no shipped config sets it)")
+
+
+@dataclass(frozen=True)
 class DiffusionConfig:
     """DDPM schedule and parameterization; schedules are kept in fp32."""
 
@@ -182,13 +273,18 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class PandoraConfig:
-    """The sub-configs of the DynamiCrafter slices."""
+    """The sub-configs of the ported slices."""
 
     vae: VAEConfig = field(default_factory=VAEConfig)
     unet: UNet3DConfig = field(default_factory=UNet3DConfig)
     clip_text: CLIPTextConfig = field(default_factory=CLIPTextConfig)
     clip_vision: CLIPVisionConfig = field(default_factory=CLIPVisionConfig)
+    clip_tower: CLIPTowerConfig = field(default_factory=CLIPTowerConfig)
     resampler: ResamplerConfig = field(default_factory=ResamplerConfig)
+    llama: LLaMAConfig = field(default_factory=LLaMAConfig)
+    cluster: ClusterConfig = field(default_factory=ClusterConfig)
+    qformer: QFormerConfig = field(default_factory=QFormerConfig)
+    connector: ConnectorConfig = field(default_factory=ConnectorConfig)
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)

@@ -4,13 +4,17 @@ open_pandora_tpu/core/convert.py.
 `state_dict_from_jax(params, cfg)` takes the params tree of the JAX
 package's DynamiCrafter (NumPy leaves) and returns {reference key:
 np.ndarray}: the dict `convert_dynamicrafter` reads, and the dict this
-package's DynamiCrafter loads with load_state_dict(strict=True).
+package's DynamiCrafter loads with load_state_dict(strict=True). A tree
+that also holds the LLM-side families ('llama', 'clip_tower',
+'mm_projector', 'connector') is the WorldModel's: the result is the dict
+`convert_world_model` reads and this package's WorldModel loads.
 
 Leaf transforms (each the inverse of the forward converter's):
   Dense kernel (in, out)  -> Linear weight (out, in)   [Conv1d k=1: (out, in, 1)]
   conv2d kernel HWIO      -> weight OIHW
   conv3d kernel DHWIO     -> weight OIDHW
-  norm scale / bias       -> weight / bias
+  norm scale / bias       -> weight / bias   [RMSNorm: scale -> weight]
+  embedding (vocab, dim)  -> weight, as it is
 """
 
 from __future__ import annotations
@@ -258,17 +262,107 @@ def vae(out: Flat, params: Mapping, cfg, prefix: str) -> None:
     conv2d(out, f"{prefix}.post_quant_conv", p["post_quant_conv"])
 
 
+# -- LLM side: LLaMA, CLIP ViT-L tower, Q-Former connector -------------------
+
+
+def llama(out: Flat, params: Mapping, prefix: str) -> None:
+    """models.llama.LlamaForCausalLM params -> HF keys under `prefix`
+    (the LlamaModel); lm_head sits beside it."""
+    p = params["params"]
+    out[f"{prefix}.embed_tokens.weight"] = _a(p["embed_tokens"]["embedding"])
+    out[f"{prefix}.norm.weight"] = _a(p["model"]["norm"]["scale"])
+    i = 0
+    while f"layers_{i}" in p["model"]:
+        lp, q = f"{prefix}.layers.{i}", p["model"][f"layers_{i}"]
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            linear(out, f"{lp}.self_attn.{name}", q["self_attn"][name])
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            linear(out, f"{lp}.mlp.{name}", q["mlp"][name])
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            out[f"{lp}.{name}.weight"] = _a(q[name]["scale"])
+        i += 1
+    if "lm_head" in p:
+        head = prefix.rsplit(".", 1)[0] + "." if "." in prefix else ""
+        linear(out, f"{head}lm_head", p["lm_head"])
+
+
+def clip_tower(out: Flat, params: Mapping, prefix: str) -> None:
+    """models.clip_tower.CLIPVisionTower params -> HF vision_model keys."""
+    p = params["params"]
+    conv2d(out, f"{prefix}.embeddings.patch_embedding", p["patch_embedding"])
+    out[f"{prefix}.embeddings.class_embedding"] = _a(p["class_embedding"])
+    out[f"{prefix}.embeddings.position_embedding.weight"] = _a(
+        p["position_embedding"])
+    norm(out, f"{prefix}.pre_layrnorm", p["pre_layrnorm"])
+    i = 0
+    while f"layers_{i}" in p:
+        lp, q = f"{prefix}.encoder.layers.{i}", p[f"layers_{i}"]
+        norm(out, f"{lp}.layer_norm1", q["layer_norm1"])
+        norm(out, f"{lp}.layer_norm2", q["layer_norm2"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(out, f"{lp}.self_attn.{name}", q[name])
+        linear(out, f"{lp}.mlp.fc1", q["fc1"])
+        linear(out, f"{lp}.mlp.fc2", q["fc2"])
+        i += 1
+
+
+def qformer(out: Flat, p: Mapping, prefix: str) -> None:
+    """models.connector.QFormer params (no 'params' level) -> HF
+    Blip2QFormerModel keys."""
+    norm(out, f"{prefix}.layernorm", p["layernorm"])
+
+    def bert_attn(ap: str, a: Mapping) -> None:
+        for name in ("query", "key", "value"):
+            linear(out, f"{ap}.attention.{name}", a[name])
+        linear(out, f"{ap}.output.dense", a["output_dense"])
+        norm(out, f"{ap}.output.LayerNorm", a["output_layernorm"])
+
+    i = 0
+    while f"layer_{i}" in p:
+        lp, q = f"{prefix}.encoder.layer.{i}", p[f"layer_{i}"]
+        bert_attn(f"{lp}.attention", q["attention"])
+        if "crossattention" in q:
+            bert_attn(f"{lp}.crossattention", q["crossattention"])
+        linear(out, f"{lp}.intermediate_query.dense", q["intermediate_query"])
+        linear(out, f"{lp}.output_query.dense", q["output_query"])
+        norm(out, f"{lp}.output_query.LayerNorm", q["output_query_layernorm"])
+        i += 1
+
+
+def connector(out: Flat, params: Mapping) -> None:
+    """models.connector.Connector params -> the checkpoint's top-level
+    keys."""
+    p = params["params"]
+    out["image_prefix.weight"] = _a(p["image_prefix"])
+    linear(out, "diffusion_qformer_proj", p["qformer_proj"])
+    out["diffusion_query_tokens"] = _a(_a(p["query_tokens"])[None])
+    qformer(out, p["qformer"], "diffusion_qformer")
+    linear(out, "diffusion_proj", p["proj"])
+
+
 # -- composite ----------------------------------------------------------------
+
+_TOWER = "video_model.model.vision_tower.vision_tower.vision_model"
 
 
 def state_dict_from_jax(params: Mapping, cfg) -> Flat:
     """DynamiCrafter params {'unet', 'vae', 'clip_text', 'clip_img',
-    'resampler'} -> the standalone checkpoint's flat state dict. cfg:
-    PandoraConfig (either package's)."""
+    'resampler'} -> the standalone checkpoint's flat state dict; with
+    'llama', 'clip_tower', 'mm_projector' and 'connector' beside them, the
+    WorldModel's params -> the released composite's (the diffusion families
+    under `diffusion_model.`). cfg: PandoraConfig (either package's)."""
     out: Flat = {}
-    unet(out, params["unet"], cfg.unet, "model.diffusion_model")
-    vae(out, params["vae"], cfg.vae, "first_stage_model")
-    openclip_text(out, params["clip_text"], "cond_stage_model.model")
-    openclip_visual(out, params["clip_img"], "embedder.model.visual")
-    resampler(out, params["resampler"], "image_proj_model")
+    world = "llama" in params
+    pre = "diffusion_model." if world else ""
+    unet(out, params["unet"], cfg.unet, f"{pre}model.diffusion_model")
+    vae(out, params["vae"], cfg.vae, f"{pre}first_stage_model")
+    openclip_text(out, params["clip_text"], f"{pre}cond_stage_model.model")
+    openclip_visual(out, params["clip_img"], f"{pre}embedder.model.visual")
+    resampler(out, params["resampler"], f"{pre}image_proj_model")
+    if world:
+        llama(out, params["llama"], "video_model.model")
+        clip_tower(out, params["clip_tower"], _TOWER)
+        linear(out, "video_model.model.mm_projector",
+               params["mm_projector"]["params"]["proj"])
+        connector(out, params["connector"])
     return out

@@ -5,8 +5,11 @@ branch (ResBlock out_conv, temporal conv4, transformer proj_out,
 fps_embedding.2, the UNet's final conv), which makes a freshly initialised
 UNet output exactly 0 and hides every layer behind it. Here every matrix
 and kernel is drawn N(0, 1/fan_in), so no layer stays zero and activations
-keep unit scale through depth; norm scales are 1, biases and 1-D
-embeddings small and random, the Resampler latents N(0, 1/dim).
+keep unit scale through depth; norm scales (RMSNorm's too) are 1, biases and
+1-D embeddings small and random, the Resampler latents N(0, 1/dim). The
+LLM-side families fall under the same rules: embedding tables, position
+embeddings and the connector's prefix rows are matrices (rows of norm about
+1), the Q-Former's query tokens N(0, 1/(77 * 768)) ahead of its LayerNorm.
 """
 
 from __future__ import annotations

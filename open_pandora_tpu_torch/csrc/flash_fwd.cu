@@ -141,7 +141,7 @@ extern "C" int pandora_flash_fwd(const void* q, const void* k, const void* v,
                                  int dtype, void* stream) {
   using namespace pandora;
   if (B <= 0 || N <= 0 || M <= 0 || H <= 0 || D <= 0 || D > 512 ||
-      D % 8 != 0)
+      D % 8 != 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                            v_sb, v_sn, v_sh};

@@ -1,12 +1,14 @@
 // Packed-layout attention forward for Hopper (sm_90a), bf16: one key/value
 // stream, or two with the second scaled by a gate.
 //
-// Replaces the Pallas kernel `_kernel` in
+// Replaces the Pallas kernels `_kernel` and `_kernel_multi` in
 // open_pandora_tpu/ops/packed_attention.py (reached through `_packed_call`
-// from `self_attention_packed` and `dual_cross_attention_packed`): the
-// UNet's spatial self-attention (attn1, N = M = 2560 or 640) and its dual
-// text + image cross-attention (attn2, 77 text keys plus 16 image keys per
-// frame), computed as
+// and `_packed_call_multi` from `self_attention_packed` and
+// `dual_cross_attention_packed`): the UNet's spatial self-attention (attn1,
+// N = M = 2560 or 640 at 320x512; 9216, 2304 and 576 at 576x1024, where the
+// TPU needs its second kernel to carry the softmax across key blocks) and
+// its dual text + image cross-attention (attn2, 77 text keys plus 16 image
+// keys per frame), computed as
 //     o = attn(q, k0, v0) [+ gate * attn(q, k1, v1)]
 // with each stream normalised in fp32, the gate applied in fp32 and one
 // cast at the end.
@@ -153,7 +155,7 @@ extern "C" int pandora_packed_attn_fwd(
   using namespace pandora;
   if (dtype != kBFloat16 || B <= 0 || N <= 0 || H <= 0 || D <= 0 ||
       D > 128 || D % 8 != 0 || nstreams < 1 || nstreams > 2 || M0 <= 0 ||
-      (nstreams == 2 && M1 <= 0))
+      (nstreams == 2 && M1 <= 0) || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Stream s0{k0, v0, M0, k0_sb, k0_sn, v0_sb, v0_sn};
   const Stream s1{nstreams == 2 ? k1 : k0, nstreams == 2 ? v1 : v0,

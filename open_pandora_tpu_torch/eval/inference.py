@@ -22,7 +22,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from open_pandora_tpu_torch.core.config import (CLIPTextConfig,
                                                 CLIPVisionConfig,
@@ -31,6 +30,8 @@ from open_pandora_tpu_torch.core.config import (CLIPTextConfig,
                                                 UNet3DConfig, VAEConfig)
 from open_pandora_tpu_torch.core.init import init_random_
 from open_pandora_tpu_torch.models.dynamicrafter import DynamiCrafter
+from open_pandora_tpu_torch.pipeline.preprocess import (diffusion_preprocess,
+                                                        to_unit_float)
 from open_pandora_tpu_torch.pipeline.tokenizers import load_clip_tokenizer
 
 
@@ -66,33 +67,6 @@ def build_model(cfg: PandoraConfig, *, device, dtype=torch.float32,
     return model
 
 
-def _resize(x: torch.Tensor, size) -> torch.Tensor:
-    """(h, w, 3) -> size, bilinear with antialiasing."""
-    y = F.interpolate(x.permute(2, 0, 1)[None], size=size, mode="bilinear",
-                      align_corners=False, antialias=True)
-    return y[0].permute(1, 2, 0)
-
-
-def diffusion_preprocess(image: torch.Tensor, hw) -> torch.Tensor:
-    """(H0, W0, 3) in [0, 1] -> (h, w, 3) in [-1, 1]: shortest side resized
-    to min(h, w), scaled up again if the crop box is not covered, center
-    crop (pipeline/preprocess.py's diffusion_preprocess)."""
-    h, w = hw
-    ih, iw = image.shape[:2]
-    target = min(h, w)
-    if iw < ih:
-        size = (round(ih * target / iw), target)
-    else:
-        size = (target, round(iw * target / ih))
-    x = _resize(image, size)
-    if x.shape[0] < h or x.shape[1] < w:
-        scale = max(h / x.shape[0], w / x.shape[1])
-        x = _resize(x, (round(x.shape[0] * scale), round(x.shape[1] * scale)))
-    top = max((x.shape[0] - h) // 2, 0)
-    left = max((x.shape[1] - w) // 2, 0)
-    return x[top:top + h, left:left + w] * 2.0 - 1.0
-
-
 def synthesize(model: DynamiCrafter, image: np.ndarray, prompt: str, *,
                height: int = 320, width: int = 512, ddim_steps: int = 50,
                guidance_scale: float = 7.5, guidance_rescale: float = 0.7,
@@ -108,8 +82,7 @@ def synthesize(model: DynamiCrafter, image: np.ndarray, prompt: str, *,
     it receives conditioning_s, sampling_s, step_s and decode_s."""
     dev = model.device
     tokenizer = tokenizer or load_clip_tokenizer()
-    img = torch.tensor(np.asarray(image), device=dev)
-    img = img.float() / 255.0 if img.dtype == torch.uint8 else img.float()
+    img = to_unit_float(image, dev)
 
     def mark():
         if timings is not None and dev.type == "cuda":
@@ -205,9 +178,24 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    import cv2
     from PIL import Image
 
-    from open_pandora_tpu.utils.video_io import frames_to_uint8, write_video
+    from open_pandora_tpu_torch.utils.video_io import frames_to_uint8
+
+    def write_video(path, frames, fps):
+        """frames (t, h, w, 3) uint8 RGB -> mp4 (h264, else mp4v)."""
+        h, w = frames.shape[1:3]
+        for codec in ("avc1", "mp4v"):
+            writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*codec),
+                                     fps, (w, h))
+            if writer.isOpened():
+                for fr in frames:
+                    writer.write(cv2.cvtColor(fr, cv2.COLOR_RGB2BGR))
+                writer.release()
+                return
+            writer.release()
+        raise RuntimeError(f"no usable mp4 codec for {path}")
 
     device = torch.device(args.device)
     if args.debug:

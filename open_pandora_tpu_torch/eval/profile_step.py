@@ -1,5 +1,5 @@
-"""Where the device time of one image-to-video clip and of one training
-step goes, on one CUDA card.
+"""Where the device time of one image-to-video clip, of one training step
+and of one LLM-conditioned round at 576x1024 goes, on one CUDA card.
 
 Run from the repository root:
 
@@ -16,6 +16,15 @@ the three parts of `eval.inference.synthesize` at 320x512x16f:
   train_step    one `dynamicrafter` finetune step (train.step) at batch 1:
                 frozen VAE encode and encoders, the UNet forward, its
                 checkpoint recompute and backward, clip and AdamW
+
+Then it builds the full-width WorldModel (LLaMA-7B, CLIP ViT-L tower,
+Q-Former connector and the same diffusion stack) and times, at 576x1024:
+
+  conditioning_llm_round1 / _round2   `get_diffusion_conditioning` of a
+                ChatWM prompt: tower, clustering, prefill, connector (round
+                1: one image, 192 spliced rows; round 2: 17 images, 384)
+  unet_eval_576x1024   one batched-CFG UNet eval on a 72x128 latent
+  decode_576x1024      the 16-frame VAE decode in 2-frame chunks
 
 For each part it prints one JSON line: the wall time of the first call
 (`cold_wall_ms`) and the mean of `--calls` later calls (`wall_ms`), both on
@@ -50,7 +59,8 @@ KERNEL_CLASSES = (
     ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("small_attn_fwd", ("small_attn_fwd_kernel",)),
     ("small_attn_bwd", ("small_attn_bwd_kernel",)),
-    ("packed_attn_fwd", ("packed_attn_kernel",)),
+    ("packed_attn_fwd", ("packed_attn_kernel",)),   # both regimes
+    ("dual_cross_attn", ("dual_cross_attn_kernel",)),
     ("fused_temporal_attn", ("fused_temporal_kernel",)),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad")),
@@ -179,7 +189,55 @@ def main(argv=None) -> int:
     print(json.dumps(profile_part(
         "train_step", lambda: step(state, batch, generator=gen),
         args.calls)), flush=True)
+    del state, step, model
+    torch.cuda.empty_cache()
+    profile_world(cfg, dev, args)
     return 0
+
+
+def profile_world(cfg: PandoraConfig, dev, args) -> None:
+    """The parts of one ChatWM round at 576x1024 on the full-width
+    WorldModel."""
+    from open_pandora_tpu_torch.models.world_model import (next_round_prompt,
+                                                           round1_prompt)
+    from open_pandora_tpu_torch.pipeline.chat_wm import build_world_model
+
+    wm = build_world_model(cfg, device=dev, dtype=torch.bfloat16,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(args.seed + 3))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    T, size = cfg.unet.temporal_length, cfg.clip_tower.image_size
+    images = torch.randn(1, 1 + T, size, size, 3, generator=gen, device=dev)
+    # texts of 9 and 5 tokens in ChatWM's 16-token bucket
+    ids = torch.randint(3, 31000, (2, 1, 16), generator=gen, device=dev)
+    masks = [torch.arange(16, device=dev)[None] < n for n in (9, 5)]
+    round1 = round1_prompt(ids[0], images=images[:, :1], text_mask=masks[0])
+    round2 = next_round_prompt(round1, range(1, 1 + T), ids[1],
+                               text_mask=masks[1])
+    round2.images = images
+    hz, wz = 576 // 8, 1024 // 8
+    with torch.no_grad():
+        ctx = wm.get_diffusion_conditioning(round2)[:, -1]
+        z = torch.randn(1, T, hz, wz, cfg.vae.z_channels, generator=gen,
+                        device=dev, dtype=wm.dtype)
+        x2, zc2 = torch.cat([z, z]), torch.cat([z, z])
+        t2 = torch.full((2,), 999, dtype=torch.int64, device=dev)
+        fs2 = torch.full((2,), 3, dtype=torch.int64, device=dev)
+        img_ctx = torch.randn(1, T * cfg.unet.img_tokens_per_frame,
+                              cfg.unet.context_dim, generator=gen, device=dev,
+                              dtype=wm.dtype)
+        ctx2 = torch.cat([torch.cat([ctx, img_ctx], dim=1)] * 2)
+        parts = (
+            ("conditioning_llm_round1",
+             lambda: wm.get_diffusion_conditioning(round1)),
+            ("conditioning_llm_round2",
+             lambda: wm.get_diffusion_conditioning(round2)),
+            ("unet_eval_576x1024",
+             lambda: wm.diffusion.apply_model(x2, t2, ctx2, zc2, fs2)),
+            ("decode_576x1024", lambda: wm.diffusion.decode(z, frame_chunk=2)),
+        )
+        for name, fn in parts:
+            print(json.dumps(profile_part(name, fn, args.calls)), flush=True)
 
 
 if __name__ == "__main__":

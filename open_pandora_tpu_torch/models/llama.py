@@ -1,0 +1,162 @@
+"""LLaMA-7B trunk, prefill-oriented.
+
+Counterpart of open_pandora_tpu/models/llama.py (without its int8, NF4 and
+LoRA projections, which wait for later slices). HF LLaMA semantics: RMSNorm
+eps 1e-6 (fp32 statistics, the scale after the cast back), rotary
+embeddings over the full head width in two contiguous halves, SwiGLU MLP,
+pre-norm residual blocks. The world model calls the bare trunk on spliced
+input embeddings and reads hidden states only; `lm_head` is kept so the
+state dict has HF's keys.
+
+Module and parameter names follow the HF state dict
+(`model.embed_tokens.weight`, `model.layers.0.self_attn.q_proj.weight`,
+`model.norm.weight`, `lm_head.weight`).
+
+Token ids: <image> = 32000 (= vocab_size, the splice marker), [IMG_P] =
+32001 (the connector's learned-prefix slots).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from open_pandora_tpu_torch.core.config import LLaMAConfig
+from open_pandora_tpu_torch.ops.attention import attention
+from open_pandora_tpu_torch.ops.norms import rms_norm
+
+IMAGE_TOKEN_ID = 32000
+IMG_PREFIX_TOKEN_ID = 32001
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, eps=self.eps)
+
+
+def rotary_embed(x: torch.Tensor, positions: torch.Tensor,
+                 theta: float = 10000.0) -> torch.Tensor:
+    """Apply RoPE in fp32. x (b, n, h, d); positions (b, n) or (n,). HF
+    LLaMA layout: rotate_half over two contiguous halves of the head."""
+    d = x.shape[-1]
+    inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                             device=x.device) / d))
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    freqs = positions[..., None].float() * inv_freq          # (b, n, d/2)
+    cos = torch.cos(freqs)[:, :, None, :]
+    sin = torch.sin(freqs)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LLaMAConfig):
+        super().__init__()
+        self.heads, self.theta = cfg.num_heads, cfg.rope_theta
+        d = cfg.hidden_size
+        self.q_proj = nn.Linear(d, d, bias=False)
+        self.k_proj = nn.Linear(d, d, bias=False)
+        self.v_proj = nn.Linear(d, d, bias=False)
+        self.o_proj = nn.Linear(d, d, bias=False)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, d = x.shape
+        q, k, v = (p(x).view(b, n, self.heads, d // self.heads)
+                   for p in (self.q_proj, self.k_proj, self.v_proj))
+        q = rotary_embed(q, positions, self.theta)
+        k = rotary_embed(k, positions, self.theta)
+        o = attention(q, k, v, causal=True, mask=mask)
+        return self.o_proj(o.reshape(b, n, d))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LLaMAConfig):
+        super().__init__()
+        d, m = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = nn.Linear(d, m, bias=False)
+        self.up_proj = nn.Linear(d, m, bias=False)
+        self.down_proj = nn.Linear(m, d, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaLayer(nn.Module):
+    def __init__(self, cfg: LLaMAConfig):
+        super().__init__()
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.self_attn = LlamaAttention(cfg)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
+                                                cfg.rms_norm_eps)
+        self.mlp = LlamaMLP(cfg)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.self_attn(self.input_layernorm(x), positions, mask)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaTrunk(nn.Module):
+    """The bare LlamaModel: input embeddings (b, n, hidden) -> hidden
+    states. Holds the embedding table, as HF's does."""
+
+    def __init__(self, cfg: LLaMAConfig):
+        super().__init__()
+        self.embed_tokens = nn.Embedding(cfg.total_vocab, cfg.hidden_size)
+        self.layers = nn.ModuleList(LlamaLayer(cfg)
+                                    for _ in range(cfg.num_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+
+    def forward(self, inputs_embeds: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """positions (b, n) or (n,), default arange(n); attention_mask
+        (b, n), True = a real key, combined with the causal mask."""
+        if positions is None:
+            positions = torch.arange(inputs_embeds.shape[1],
+                                     device=inputs_embeds.device)
+        mask = None
+        if attention_mask is not None:
+            mask = attention_mask[:, None, None, :].bool()
+        x = inputs_embeds.to(self.norm.weight.dtype)
+        for layer in self.layers:
+            x = layer(x, positions, mask)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Trunk, embedding and lm_head. The conditioning path calls `embed`
+    and `trunk` only."""
+
+    def __init__(self, cfg: LLaMAConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.model = LlamaTrunk(cfg)
+        self.lm_head = nn.Linear(cfg.hidden_size, cfg.total_vocab,
+                                 bias=False)
+
+    def embed(self, token_ids: torch.Tensor) -> torch.Tensor:
+        return self.model.embed_tokens(token_ids)
+
+    def trunk(self, inputs_embeds: torch.Tensor,
+              positions: Optional[torch.Tensor] = None,
+              attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.model(inputs_embeds, positions, attention_mask)
+
+    def forward(self, token_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        h = self.model(self.embed(token_ids), attention_mask=attention_mask)
+        return self.lm_head(h)

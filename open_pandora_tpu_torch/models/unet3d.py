@@ -6,10 +6,12 @@ Counterpart of open_pandora_tpu/models/unet3d.py, with its two routes:
   - fused (bf16, eval, `kernels.fused_available(x)`: a CUDA device, as the
     JAX package's default route asks for a TPU): every GroupNorm takes the
     GroupNorm+SiLU kernel; the spatial attn1 and the dual text + image attn2
-    at 2560 and 640 tokens take the packed attention kernel on the packed
-    (b, n, h*d) projections; the temporal transformers up to 640 channels
-    run attn1 and attn2 each as one fused temporal kernel on the native
-    stream; the 1280-channel temporal sites take the small-attention kernel.
+    at 512 tokens or more take the packed attention kernel on the packed
+    (b, n, h*d) projections (attn2 the dual cross-attention kernel where the
+    head width does not divide 128); the temporal transformers up to 640
+    channels with heads 16, 32 or 64 wide run attn1 and attn2 each as one
+    fused temporal kernel on the native stream; the other temporal sites
+    take the small-attention kernel.
   - unfused (fp32, training, or a CPU tensor; the JAX package's route off
     the TPU or with PANDORA_DISABLE_FUSED): every attention goes through
     the dispatcher (flash at 2560 and 640 tokens and small attention at
@@ -46,6 +48,8 @@ from open_pandora_tpu_torch.models.layers import (Conv2d, GroupNorm32,
 from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.attention import attention
 from open_pandora_tpu_torch.ops.attention_xla import causal_mask
+from open_pandora_tpu_torch.ops.dual_cross_attention import (
+    dual_cross_attention, dual_cross_attention_eligible)
 from open_pandora_tpu_torch.ops.fused_temporal import (
     fused_temporal_eligible, fused_temporal_self_attention)
 from open_pandora_tpu_torch.ops.packed_attention import (
@@ -61,10 +65,12 @@ def _fused_route(module: nn.Module, x: torch.Tensor) -> bool:
 
 
 def fused_temporal_ok(module: nn.Module, x: torch.Tensor, t: int, dim: int,
-                      inner: int) -> bool:
+                      inner: int, heads: Optional[int] = None) -> bool:
     """`_fused_temporal_ok` (models/unet3d.py:375-384): the fused route and
-    the fused temporal kernel's shape gate."""
-    return _fused_route(module, x) and fused_temporal_eligible(t, dim, inner)
+    the fused temporal kernel's shape gate (with `heads`, its head-width
+    rule too)."""
+    return _fused_route(module, x) and fused_temporal_eligible(t, dim, inner,
+                                                               heads)
 
 
 class CrossAttention(nn.Module):
@@ -116,6 +122,13 @@ class CrossAttention(nn.Module):
                 # packed attention kernel, both streams and the gate in one
                 out = dual_cross_attention_packed(q, k, v, k_ip, v_ip, gate,
                                                   heads=self.heads)
+            elif fast and dual_cross_attention_eligible(
+                    n, k.shape[1], k_ip.shape[1], self.dim_head):
+                # head widths the packed gate refuses (not a divisor of
+                # 128): the dual cross-attention kernel on head views
+                out = dual_cross_attention(
+                    self._heads(q), self._heads(k), self._heads(v),
+                    self._heads(k_ip), self._heads(v_ip), gate)
             else:
                 qh = self._heads(q)
                 out = attention(qh, self._heads(k), self._heads(v))
@@ -188,7 +201,7 @@ class BasicTransformerBlock(nn.Module):
         a1 = self.attn1
         if (self.fused_temporal and context is None and self_mask is None
                 and fused_temporal_ok(self, x, x.shape[1], x.shape[-1],
-                                      a1.heads * a1.dim_head)):
+                                      a1.heads * a1.dim_head, a1.heads)):
             for attn, norm in ((self.attn1, self.norm1),
                                (self.attn2, self.norm2)):
                 x = fused_temporal_self_attention(
@@ -267,7 +280,7 @@ class TemporalTransformer(nn.Module):
         # tile, so every fused site stays native. Row order does not change
         # the result.
         native = not self.causal and fused_temporal_ok(self, y, t, inner,
-                                                       inner)
+                                                       inner, blk0.heads)
         if native:
             y = y.reshape(b, t, h * w, c)
         else:

@@ -13,6 +13,8 @@ them.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -23,12 +25,20 @@ MAX_DIM_INNER = 640 * 1280
 _HEAD_DIMS = (16, 32, 64)
 
 
-def fused_temporal_eligible(t: int, dim: int, inner: int) -> bool:
+def fused_temporal_eligible(t: int, dim: int, inner: int,
+                            heads: Optional[int] = None) -> bool:
     """The shape half of the JAX gate `_fused_temporal_ok`
     (models/unet3d.py:375-384): t <= 32 and dim * inner <= 640 * 1280. The
     bound keeps the 1280-channel sites on the small-attention kernel, as on
-    the JAX route."""
-    return t <= MAX_T and dim * inner <= MAX_DIM_INNER
+    the JAX route. One rule more than the JAX gate, applied when `heads` is
+    given: the kernel's mma tiles serve head widths 16, 32 and 64 and
+    channel counts that are multiples of 32, so any other width (48, 80)
+    takes the unfused route by its shape."""
+    if not (t <= MAX_T and dim * inner <= MAX_DIM_INNER):
+        return False
+    return heads is None or (heads > 0 and inner % heads == 0
+                             and inner // heads in _HEAD_DIMS
+                             and dim % 32 == 0)
 
 
 def fused_temporal_plain(y: torch.Tensor, wq: torch.Tensor,

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "pandora_group_norm_silu": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "pandora_packed_attn_fwd": [_P] * 7 + [_I] * 7 + [_L] * 12
     + [_F, _F, _I, _P],
+    "pandora_dual_cross_attn_fwd": [_P] * 7 + [_I] * 6 + [_L] * 15
+    + [_F, _F, _I, _P],
     "pandora_fused_temporal_attn": [_P] * 9 + [_I] * 5 + [_L] * 8
     + [_F, _F, _I, _P],
 }

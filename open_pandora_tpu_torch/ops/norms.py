@@ -2,7 +2,8 @@
 
 Counterpart of open_pandora_tpu/ops/norms.py. The eps differs by site:
 1e-5 in the UNet ResBlocks and temporal conv blocks, 1e-6 in the transformer
-GroupNorms and the VAE, 1e-5 in LayerNorms.
+GroupNorms and the VAE, 1e-5 in LayerNorms (1e-12 in the Q-Former), 1e-6 in
+the LLaMA RMSNorm.
 """
 
 from __future__ import annotations
@@ -38,3 +39,12 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """LLaMA RMSNorm in HF's order: the mean square in fp32, the normalised
+    value cast back to x's dtype, then the scale."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf / torch.sqrt(var + eps)).to(x.dtype) * weight

@@ -2,10 +2,16 @@
 (csrc/packed_attn_fwd.cu), its plain version, and the wrappers that pick
 between them by device.
 
-Counterpart of open_pandora_tpu/ops/packed_attention.py (Pallas `_kernel`,
-through `self_attention_packed` and `dual_cross_attention_packed`). The
-UNet's spatial transformers hand it the projections as `to_q`, `to_k`,
-`to_v` write them: no head split, no transpose.
+Counterpart of open_pandora_tpu/ops/packed_attention.py: the Pallas
+`_kernel` (one key/value block per stream, through `self_attention_packed`
+and `dual_cross_attention_packed`) and `_kernel_multi` (one stream, an
+online softmax carried across key/value blocks: the 9216-token self-attention
+at 576x1024). On the card one kernel serves both: it walks every stream in
+64-key tiles with an online softmax, so the long-key regime is the same code
+with more tiles. `packed_regime` says which of the two Pallas kernels a
+shape belongs to, and the wrapper counts the launches of each regime under
+its own name. The UNet's spatial transformers hand it the projections as
+`to_q`, `to_k`, `to_v` write them: no head split, no transpose.
 """
 
 from __future__ import annotations
@@ -51,6 +57,42 @@ def packed_attention_eligible(n: int, ms: Sequence[int], heads: int,
     return all(_ceil_to(m, LANES) <= limit for m in ms)
 
 
+# The JAX package's model of the TPU's scoped-VMEM stack, which decides
+# between its two kernels (ops/packed_attention.py:68-97, 331-334): the
+# per-head fp32 scores of one q block against a whole stream must fit a
+# calibrated budget for the single-block kernel to compile.
+_STACK_BUDGET_WHOLE_N = 8.0 * 2**20
+_BLOCK_Q_CANDIDATES = (256, 192, 128, 96, 64)
+
+
+def _stack_budget(heads: int) -> float:
+    return (13.2 if heads <= 8 else 9.9) * 2**20
+
+
+def _choose_block_q(np_: int, heads: int, mps: Sequence[int]):
+    def stack(bq):
+        return heads * bq * sum(mps) * 4
+    if np_ <= 512 and stack(np_) <= min(_STACK_BUDGET_WHOLE_N,
+                                        _stack_budget(heads)):
+        return np_
+    for bq in _BLOCK_Q_CANDIDATES:
+        if stack(min(bq, np_)) <= _stack_budget(heads):
+            return min(bq, np_)
+    return None
+
+
+def packed_regime(n: int, ms: Sequence[int], heads: int) -> str:
+    """Which Pallas kernel the JAX package runs an admitted shape on:
+    "single" (`_kernel`: every stream in one key/value block) or "multi"
+    (`_kernel_multi`: the online softmax across blocks), by the rule of
+    `_single_block_fits`. Used to name the launch count and the rows of the
+    kernel table, never to route: the card's kernel is the same."""
+    mps = [_ceil_to(m, LANES) for m in ms]
+    fits = (all(mp <= MAX_KV_ROWS for mp in mps)
+            and _choose_block_q(_ceil_to(n, LANES), heads, mps) is not None)
+    return "single" if fits else "multi"
+
+
 def packed_attention_plain(q: torch.Tensor, streams: Streams, gate: Gate,
                            *, heads: int) -> torch.Tensor:
     """The kernel's function in plain PyTorch: per stream, fp32 scores, the
@@ -87,7 +129,17 @@ def packed_attention(q: torch.Tensor, streams: Streams, gate: Gate = 1.0, *,
     return _packed_cuda(q, streams, gate, heads=heads)
 
 
-packed_attention.launches = 0
+packed_attention.launches = 0          # launches in the "single" regime
+
+
+def packed_attention_multi(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, heads: int) -> torch.Tensor:
+    """One stream in the long-key ("multi") regime; the same kernel and the
+    same wrapper, named so that its launches have a count of their own."""
+    return packed_attention(q, [(k, v)], heads=heads)
+
+
+packed_attention_multi.launches = 0    # launches in the "multi" regime
 
 
 def self_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,7 +161,8 @@ def dual_cross_attention_packed(q: torch.Tensor, kt: torch.Tensor,
 def check_shapes(q: torch.Tensor, streams: Streams, heads: int) -> None:
     """What the kernel takes, device aside: q (B, N, H*D) and one or two
     streams of k, v (B, M_s, H*D), all bf16, D a multiple of 8 up to 128,
-    rows with a unit last stride and 4-byte alignment."""
+    rows with a unit last stride and 4-byte alignment, B and H within a
+    launch grid."""
     name = "packed_attention"
     flat = [t for kv in streams for t in kv]
     if any(t.dtype != torch.bfloat16 for t in (q, *flat)):
@@ -125,6 +178,8 @@ def check_shapes(q: torch.Tensor, streams: Streams, heads: int) -> None:
     if d % 8 or d > 128:
         raise ValueError(f"{name}: head width must be a multiple of 8 up to "
                          f"128, got {d}")
+    if b > 65535 or heads > 65535:
+        raise ValueError(f"{name}: batch and heads must be at most 65535")
     for k, v in streams:
         if (k.ndim != 3 or v.shape != k.shape or k.shape[0] != b
                 or k.shape[2] != hd or k.shape[1] == 0):
@@ -157,5 +212,8 @@ def _packed_cuda(q, streams, gate, *, heads):
             d ** -0.5, kernels.DTYPE_CODES[q.dtype],
             kernels.stream_handle(q))
     kernels.check_cuda(err, "pandora_packed_attn_fwd")
-    packed_attention.launches += 1
+    if packed_regime(n, [k.shape[1] for k, _ in streams], heads) == "multi":
+        packed_attention_multi.launches += 1
+    else:
+        packed_attention.launches += 1
     return o

@@ -123,3 +123,107 @@ def test_config_defaults_match():
         if dataclasses.is_dataclass(mine):
             mine, ref = dataclasses.asdict(mine), dataclasses.asdict(ref)
         assert mine == ref, f.name
+
+
+# -- the LLM-side families (WorldModel) --------------------------------------
+
+
+@pytest.fixture(scope="module")
+def world_params():
+    """A params tree shaped like the JAX WorldModel's init, seeded values."""
+    from open_pandora_tpu.models.world_model import WorldModel as JaxWM
+    from open_pandora_tpu_torch.pipeline.chat_wm import debug_world_config
+
+    cfg = debug_world_config()
+    shapes = jax.eval_shape(
+        functools.partial(JaxWM(jax_config(cfg)).init_params, height=32,
+                          width=32), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(1)
+    return cfg, jtu.tree_map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+
+
+def test_world_round_trip_is_exact(world_params):
+    """convert_world_model(state_dict_from_jax(p)) == p, leaf for leaf, the
+    four LLM-side families and the diffusion families under their
+    `diffusion_model.` prefix."""
+    from open_pandora_tpu.core.convert import convert_world_model
+
+    cfg, params = world_params
+    sd = state_dict_from_jax(params, cfg)
+    back = convert_world_model(sd, jax_config(cfg))
+    flat_a = jtu.tree_flatten_with_path(params)[0]
+    flat_b = jtu.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (path, a), (_, b) in zip(flat_a, flat_b):
+        assert a.shape == b.shape, jtu.keystr(path)
+        np.testing.assert_array_equal(a, b, err_msg=jtu.keystr(path))
+    assert {"llama", "clip_tower", "mm_projector", "connector"} <= set(back)
+
+
+def test_world_strict_load_and_released_keys(world_params):
+    """The port's WorldModel takes the converted dict with strict=True; its
+    own state dict has exactly those keys, which are the released
+    checkpoint's families'."""
+    from open_pandora_tpu_torch.pipeline.chat_wm import build_world_model
+
+    cfg, params = world_params
+    sd = state_dict_from_jax(params, cfg)
+    wm = build_world_model(cfg, device="cpu")
+    wm.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                       strict=True)
+    got = wm.state_dict()
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: v.shape for k, v in sd.items()}
+    tower = "video_model.model.vision_tower.vision_tower.vision_model"
+    for key in ("video_model.model.embed_tokens.weight",
+                "video_model.model.layers.1.self_attn.q_proj.weight",
+                "video_model.model.norm.weight", "video_model.lm_head.weight",
+                f"{tower}.embeddings.patch_embedding.weight",
+                f"{tower}.embeddings.position_embedding.weight",
+                f"{tower}.pre_layrnorm.bias",
+                f"{tower}.encoder.layers.0.mlp.fc1.weight",
+                "video_model.model.mm_projector.weight",
+                "image_prefix.weight", "diffusion_query_tokens",
+                "diffusion_qformer_proj.bias",
+                "diffusion_qformer.encoder.layer.0.crossattention.attention."
+                "query.weight",
+                "diffusion_qformer.encoder.layer.1.output_query.LayerNorm."
+                "weight", "diffusion_proj.weight",
+                "diffusion_model.model.diffusion_model.out.2.weight",
+                "diffusion_model.first_stage_model.quant_conv.weight"):
+        np.testing.assert_array_equal(got[key].numpy(), sd[key], err_msg=key)
+    assert got["diffusion_query_tokens"].ndim == 3
+    assert "diffusion_qformer.encoder.layer.1.crossattention.attention." \
+        "query.weight" not in got
+    # the parts under the JAX package's names
+    assert wm.llama is wm.video_model and wm.diffusion is wm.diffusion_model
+    assert wm.mm_projector.weight.shape == (cfg.llama.hidden_size,
+                                            cfg.clip_tower.width)
+    with pytest.raises(RuntimeError, match="image_prefix"):
+        wm.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()
+                            if k != "image_prefix.weight"}, strict=True)
+
+
+def test_random_init_leaves_nothing_zero(world_params):
+    from open_pandora_tpu_torch.pipeline.chat_wm import build_world_model
+
+    cfg, _ = world_params
+    wm = build_world_model(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    for name, p in wm.named_parameters():
+        assert torch.isfinite(p).all() and float(p.abs().max()) > 0, name
+
+
+@pytest.mark.parametrize("make,slice_", [
+    (lambda: tcfg.LLaMAConfig(lora_rank=64), "LLM training"),
+    (lambda: tcfg.CLIPTowerConfig(tower_type="eva_vit_g"), "EVA"),
+    (lambda: tcfg.ConnectorConfig(use_diffusion_text_encoder=True),
+     "eval-and-tools"),
+    (lambda: __import__(
+        "open_pandora_tpu_torch.models.world_model", fromlist=["WorldModel"]
+    ).WorldModel(tcfg.PandoraConfig(), quantize_llm="int8"), "quantization"),
+])
+def test_waiting_llm_paths_name_their_slice(make, slice_):
+    with pytest.raises(NotImplementedError, match=slice_):
+        make()

@@ -31,6 +31,8 @@ from open_pandora_tpu_torch.ops.packed_attention import (
     dual_cross_attention_packed, packed_attention_eligible,
     self_attention_packed)
 
+tdca = importlib.import_module(
+    "open_pandora_tpu_torch.ops.dual_cross_attention")
 tfn = importlib.import_module("open_pandora_tpu_torch.ops.fused_norms")
 tft = importlib.import_module("open_pandora_tpu_torch.ops.fused_temporal")
 JD = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -251,8 +253,15 @@ def _spy_unet(monkeypatch):
         return torch.empty_like(x)
 
     def packed(q, streams, gate, *, heads, **kw):
-        calls.append("packed")
+        regime = tpa.packed_regime(q.shape[1],
+                                   [k.shape[1] for k, _ in streams], heads)
+        calls.append("packed_multi" if regime == "multi" else "packed")
         tpa.check_shapes(q, streams, heads)
+        return torch.empty_like(q)
+
+    def dual(q, kt, vt, ki, vi, gate):
+        calls.append("dual_cross")
+        tdca.check_shapes(q, kt, vt, ki, vi)
         return torch.empty_like(q)
 
     def fused_temporal(y, *params, heads, **kw):
@@ -262,6 +271,7 @@ def _spy_unet(monkeypatch):
 
     monkeypatch.setattr(tfn, "_gn_cuda", gn)
     monkeypatch.setattr(tpa, "_packed_cuda", packed)
+    monkeypatch.setattr(tdca, "_dual_cuda", dual)
     monkeypatch.setattr(tft, "_fused_temporal_cuda", fused_temporal)
     real_attention = tunet.attention
 
@@ -302,8 +312,9 @@ def test_full_width_eval_routes_as_predicted(monkeypatch):
     want = chip_smoke.predicted_launches(cfg, 320, 512, 1, frame_chunk=8,
                                          fused=True)["per_eval"]
     assert got == want == {"flash": 0, "flash_bwd": 0, "small": 12,
-                           "small_bwd": 0, "packed": 20,
-                           "fused_temporal": 22, "group_norm": 166}
+                           "small_bwd": 0, "packed": 20, "packed_multi": 0,
+                           "dual_cross": 0, "fused_temporal": 22,
+                           "group_norm": 166}
 
 
 @pytest.mark.parametrize("dtype,train,available", [
