@@ -13,7 +13,11 @@ Phases, each printing its own lines and raising on failure:
               ragged cases (and fp32 ones for the kernels that take fp32);
               the packed kernel in its long-key regime and the dual
               cross-attention kernel under their own names; the backward
-              kernels' dq, dk and dv each; kernel, plain and (where one
+              kernels' dq, dk and dv each; the conv kernel as the direct
+              conv (row 11) and the fused conv (row 12, with and without
+              its prologue and residual) at every routed conv site of
+              both resolutions and an edge-heavy shift; the GEGLU kernel
+              at the UNet's feed-forward widths; kernel, plain and (where one
               PyTorch call computes the same function) library times from
               CUDA events, beside the bound (the least time for the work);
               shapes a gate refuses raise in the wrapper
@@ -31,6 +35,13 @@ Phases, each printing its own lines and raising on failure:
               against the routing; then (5b) one full-width CFG UNet eval
               at head width 80, where attn2 takes the dual cross-attention
               kernel
+  5c. conv    the same model's UNet under the opt-in conv flags (set with
+              core.flags.overridden): one CFG eval at 320x512 on the
+              default route, under PANDORA_ENABLE_PCONV2 and under
+              PANDORA_ENABLE_PCONV, each held to the default route by the
+              bf16 rule against an fp32 copy on the card, launches against
+              the census; synthesize() DDIM-2 and one CFG eval at 576x1024
+              under PANDORA_ENABLE_PCONV2
   6. train    the full-width PandoraConfig() in bf16 through the trainer
               (train.trainer.run, stage dynamicrafter, synthetic data,
               3 steps at 320x512x16f); seconds per step, peak memory,
@@ -87,7 +98,17 @@ KERNELS = {
                             "open_pandora_tpu/ops/fused_temporal.py:33"),
     "group_norm_silu": ("group_norm", CSRC + "group_norm_silu.cu",
                         "open_pandora_tpu/ops/fused_norms.py:58"),
+    # one source, launched under two names: the direct conv (row 11) and the
+    # fused GroupNorm+SiLU -> conv -> bias + residual (row 12)
+    "conv3x3": ("conv3x3", CSRC + "conv3x3.cu",
+                "open_pandora_tpu/ops/conv2d.py:398"),
+    "conv3x3_fused": ("conv3x3_fused", CSRC + "conv3x3.cu",
+                      "open_pandora_tpu/ops/conv2d.py:244"),
+    "fused_geglu": ("fused_geglu", CSRC + "fused_geglu.cu",
+                    "open_pandora_tpu/ops/fused_geglu.py:62"),
 }
+# kernels no model calls, in either package: checked in phase 3 only
+OFF_PATH = {"fused_geglu": "wired into no model, as in the JAX package"}
 KERNEL_KEYS = tuple(key for key, _, _ in KERNELS.values())
 # the kernels each main path runs
 EVAL_KEYS = ("flash", "small", "packed", "fused_temporal", "group_norm")
@@ -98,10 +119,12 @@ WIDE_HEAD_KEYS = ("flash", "small", "dual_cross", "group_norm")
 
 def wrappers() -> dict:
     """The kernel wrappers by launch-count key; each counts its launches."""
+    from open_pandora_tpu_torch.ops.conv2d import conv3x3_fused, conv3x3_nhwc
     from open_pandora_tpu_torch.ops.dual_cross_attention import (
         dual_cross_attention)
     from open_pandora_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd)
+    from open_pandora_tpu_torch.ops.fused_geglu import fused_geglu_ff
     from open_pandora_tpu_torch.ops.fused_norms import fused_group_norm_silu
     from open_pandora_tpu_torch.ops.fused_temporal import (
         fused_temporal_self_attention)
@@ -115,7 +138,9 @@ def wrappers() -> dict:
             "packed_multi": packed_attention_multi,
             "dual_cross": dual_cross_attention,
             "fused_temporal": fused_temporal_self_attention,
-            "group_norm": fused_group_norm_silu}
+            "group_norm": fused_group_norm_silu,
+            "conv3x3": conv3x3_nhwc, "conv3x3_fused": conv3x3_fused,
+            "fused_geglu": fused_geglu_ff}
 
 
 def reset_launches() -> None:
@@ -321,6 +346,8 @@ def check_kernels(device, gen) -> dict:
     check_dual_cross(summary, device, gen)
     check_fused_temporal(summary, device, gen)
     check_group_norm(summary, device, gen)
+    check_conv(summary, device, gen)
+    check_geglu(summary, device, gen)
     check_refusals(device)
     return summary
 
@@ -544,7 +571,9 @@ def check_refusals(device) -> None:
     """Shapes a gate refuses must raise in the wrapper on the card: the
     fused temporal kernel at head widths 80 and 48 (its mma tiles serve 16,
     32 and 64), the packed and dual cross-attention kernels at a head width
-    that is no multiple of 8."""
+    that is no multiple of 8, the conv kernel at a channel count that is no
+    multiple of 8 and the GEGLU kernel at a width that is no multiple of
+    32."""
     from open_pandora_tpu_torch.ops.dual_cross_attention import (
         dual_cross_attention, dual_cross_attention_eligible)
     from open_pandora_tpu_torch.ops.fused_temporal import (
@@ -565,7 +594,21 @@ def check_refusals(device) -> None:
         return lambda: fused_temporal_self_attention(
             y, w, w, w, w, w[0], w[0], w[0], heads=heads)
 
+    from open_pandora_tpu_torch.core import flags
+    from open_pandora_tpu_torch.ops.conv2d import (conv3x3_eligible,
+                                                   conv3x3_nhwc)
+    from open_pandora_tpu_torch.ops.fused_geglu import (fused_geglu_ff,
+                                                        geglu_ff_eligible)
+
+    def geglu(c):
+        z = functools.partial(torch.zeros, dtype=torch.bfloat16,
+                              device=device)
+        return lambda: fused_geglu_ff(z(64, c), z(c), z(c), z(c, 8 * c),
+                                      z(8 * c), z(4 * c, c), z(c))
+
     x = torch.zeros(2, 600, 2, 44, dtype=torch.bfloat16, device=device)
+    with flags.overridden(ENABLE_PCONV=True):
+        conv_c12 = conv3x3_eligible(40, 64, 12, 320)
     results = {
         "fused_temporal_d80": refused(
             fused_temporal_eligible(16, 320, 320, 4), temporal(320, 4)),
@@ -578,6 +621,13 @@ def check_refusals(device) -> None:
         "dual_cross_d44": refused(
             dual_cross_attention_eligible(600, 600, 600, 44),
             lambda: dual_cross_attention(x, x, x, x, x, 1.0)),
+        # a channel count that is no multiple of 8, and a GEGLU width
+        # that is no multiple of 32
+        "conv3x3_c12": refused(conv_c12, lambda: conv3x3_nhwc(
+            torch.zeros(2, 40, 64, 12, dtype=torch.bfloat16, device=device),
+            torch.zeros(3, 3, 12, 320, dtype=torch.bfloat16,
+                        device=device))),
+        "fused_geglu_c48": refused(geglu_ff_eligible(48), geglu(48)),
     }
     log("kernels", json.dumps({"refused_by_gate_and_wrapper": results}))
     if not all(results.values()):
@@ -677,6 +727,9 @@ def check_group_norm(summary: dict, device, gen) -> None:
         b = (0.05 * torch.randn(c, generator=gen, device=device)
              ).to(torch.bfloat16)
         kw = dict(num_groups=32, eps=eps, silu=silu)
+        # without SiLU one PyTorch call computes the same function: the
+        # library yardstick, on the channel-first view
+        xt = x.movedim(-1, 1)
         # statistics, normalise, scale, shift, SiLU: about 8 per element
         _check(summary, "group_norm_silu",
                {"shape": list(shape), "eps": eps, "silu": silu,
@@ -684,8 +737,140 @@ def check_group_norm(summary: dict, device, gen) -> None:
                lambda: fused_group_norm_silu(x, w, b, **kw),
                lambda: group_norm(x, w, b, **kw),
                lambda: group_norm(x.float(), w.float(), b.float(), **kw),
-               ((2 * x.numel() + 2 * c) * 2, 8 * x.numel(), torch.bfloat16))
+               ((2 * x.numel() + 2 * c) * 2, 8 * x.numel(), torch.bfloat16),
+               None if silu else lambda: F.group_norm(xt, 32, w, b, eps))
+        del xt
         del x, w, b
+
+
+def routed_conv_shapes() -> list:
+    """The distinct (h, w, c, co) that the opt-in conv routes take in
+    PandoraConfig()'s UNet at 320x512, then those at 576x1024 (the gates
+    admit the same sites under either flag)."""
+    from open_pandora_tpu_torch.core import flags
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.ops.conv2d import conv3x3_eligible
+
+    u = PandoraConfig().unet
+    shapes = []
+    with flags.overridden(ENABLE_PCONV=True):
+        for hz, wz in ((40, 64), (72, 128)):
+            for _, *site in conv_sites(u, hz, wz):
+                if conv3x3_eligible(*site) and tuple(site) not in shapes:
+                    shapes.append(tuple(site))
+    return shapes
+
+
+def check_conv(summary: dict, device, gen) -> None:
+    """Rows 11 and 12 at every routed conv site of the product UNet at
+    320x512 and 576x1024 (B = 32: a CFG pair of 16 frames), the most
+    frequent level-0 site first: row 11 plain; row 12 with the prologue,
+    with the prologue and the residual, and with neither; then a ragged
+    slab (h, w and Co off the tiles), fp32, and row 12 at an edge-heavy
+    shift (a prologue applied to the zero border would show there). The
+    library yardstick is cuDNN's bf16 conv of the same slab with its bias
+    (for row 12 the conv alone). Also the gate's refusal at 10x16."""
+    from open_pandora_tpu_torch.core import flags
+    from open_pandora_tpu_torch.ops.conv2d import (conv3x3_eligible,
+                                                   conv3x3_fused,
+                                                   conv3x3_fused_eligible,
+                                                   conv3x3_fused_plain,
+                                                   conv3x3_nhwc, pack_weight)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = sorted(routed_conv_shapes(),
+                    key=lambda s: s != (40, 64, 320, 320))
+    cases = [(32, *s, bf16, v, 0.0) for v in ("plain", "pro", "pro_res",
+                                               "none") for s in shapes]
+    cases += [(3, 37, 45, 64, 72, bf16, "plain", 0.0),
+              (3, 37, 45, 64, 72, bf16, "pro_res", 0.0),
+              (2, 40, 64, 320, 320, f32, "plain", 0.0),
+              (2, 40, 64, 320, 320, f32, "pro_res", 0.0),
+              (2, 40, 64, 320, 320, bf16, "pro_res", 5.0)]
+
+    def rnd(*shape, dt=f32, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale
+                + shift).to(dt)
+    for B, H, W, C, Co, dt, variant, shift in cases:
+        x = rnd(B, H, W, C, dt=dt)
+        w = rnd(3, 3, C, Co, dt=dt, scale=(9 * C) ** -0.5)
+        b = rnd(Co, scale=0.1)
+        pro = variant.startswith("pro")
+        a = rnd(B, C, scale=0.1, shift=1.0) if pro else None
+        sh = rnd(B, C, scale=0.5, shift=shift) if pro else None
+        r = rnd(B, H, W, Co, dt=dt) if variant == "pro_res" else None
+        packed = pack_weight(w, dt)
+        if variant == "plain":
+            name = "conv3x3"
+
+            def kern():
+                return conv3x3_nhwc(x, w, b, packed=packed)
+        else:
+            name = "conv3x3_fused"
+
+            def kern():
+                return conv3x3_fused(x, w, b, a, sh, r, packed=packed)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = b.to(dt)
+        m = B * H * W
+        nbytes = ((x.numel() + 9 * C * Co + m * Co
+                   + (m * Co if r is not None else 0)) * x.element_size()
+                  + (2 * B * C if pro else 0) * 4 + Co * 4)
+        _check(summary, name,
+               {"shape": [B, H, W, C], "Co": Co, "variant": variant,
+                "shift": shift, "dtype": str(dt).replace("torch.", ""),
+                "library": "cuDNN conv + bias" + (
+                    " (no prologue or residual)" if name != "conv3x3"
+                    else "")},
+               kern, lambda: conv3x3_fused_plain(x, w, b, a, sh, r),
+               lambda: conv3x3_fused_plain(
+                   x.float(), w.float(), b, a, sh,
+                   None if r is None else r.float()),
+               (nbytes, 2 * m * Co * 9 * C, dt),
+               lambda: F.conv2d(xc, wc, bc, padding=1))
+        del x, w, b, a, sh, r, packed, xc, wc, bc
+    with flags.overridden(ENABLE_PCONV=True, ENABLE_PCONV2=True):
+        refusal = {"10x16x1280x1280": not conv3x3_eligible(10, 16, 1280, 1280)
+                   and not conv3x3_fused_eligible(10, 16, 1280, 1280)}
+    log("kernels", json.dumps({"conv_gate_refuses": refusal}))
+    if not all(refusal.values()):
+        raise AssertionError(f"the conv gates admit {refusal}")
+
+
+def check_geglu(summary: dict, device, gen) -> None:
+    """Row 13 at the UNet's feed-forward widths (320, 640, 1280 at the
+    rows of the spatial transformers at 320x512, 294912 at 576x1024 level
+    0), a ragged row count and fp32. No single PyTorch call computes it."""
+    from open_pandora_tpu_torch.ops.fused_geglu import (fused_geglu_ff,
+                                                        geglu_ff_plain)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(81920, 320, bf16), (20480, 640, bf16), (5120, 1280, bf16),
+             (294912, 320, bf16), (1000, 320, bf16), (77, 1280, bf16),
+             (4096, 640, f32)]
+
+    def rnd(*shape, dt, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale
+                + shift).to(dt)
+    for R, c, dt in cases:
+        inner = 4 * c
+        args = (rnd(R, c, dt=dt, scale=3.0),
+                rnd(c, dt=dt, scale=0.1, shift=1.0), rnd(c, dt=dt, scale=0.05),
+                rnd(c, 2 * inner, dt=dt, scale=c ** -0.5),
+                rnd(2 * inner, dt=dt, scale=0.02),
+                rnd(inner, c, dt=dt, scale=inner ** -0.5),
+                rnd(c, dt=dt, scale=0.02))
+        es = args[0].element_size()
+        _check(summary, "fused_geglu",
+               {"shape": [R, c], "inner": inner,
+                "dtype": str(dt).replace("torch.", "")},
+               lambda: fused_geglu_ff(*args),
+               lambda: geglu_ff_plain(*args),
+               lambda: geglu_ff_plain(*[t.float() for t in args]),
+               ((2 * R * c + 12 * c * c + 11 * c) * es, 24 * R * c * c, dt))
+        del args
 
 
 # -- phase 4: narrow model, card against CPU ---------------------------------
@@ -1044,17 +1229,54 @@ def check_train_step(device, seed: int) -> None:
 
 # -- phase 5: the slice at full width -----------------------------------------
 
+def conv_sites(u, hz: int, wz: int) -> list:
+    """(kind, h, w, c, co) of every stride-1 3x3 conv of the UNet that may
+    take the opt-in conv routes, on a hz x wz latent: the input conv
+    ("input"), both convs of each ResBlock ("res"), the Upsample convs
+    ("up"). The output conv and the Downsample stay library convs."""
+    mc = u.model_channels
+    sites = [("input", hz, wz, u.in_channels, mc)]
+    chans, ch, ds = [mc], mc, 1
+
+    def res(c_in, c_out):
+        sites.extend([("res", hz // ds, wz // ds, c_in, c_out),
+                      ("res", hz // ds, wz // ds, c_out, c_out)])
+    for level, mult in enumerate(u.channel_mult):
+        for _ in range(u.num_res_blocks):
+            res(ch, mult * mc)
+            ch = mult * mc
+            chans.append(ch)
+        if level != len(u.channel_mult) - 1:
+            chans.append(ch)
+            ds *= 2
+    res(ch, ch)                         # middle block
+    res(ch, ch)
+    for level, mult in reversed(list(enumerate(u.channel_mult))):
+        for i in range(u.num_res_blocks + 1):
+            res(ch + chans.pop(), mult * mc)
+            ch = mult * mc
+            if level and i == u.num_res_blocks:
+                ds //= 2
+                sites.append(("up", hz // ds, wz // ds, ch, ch))
+    return sites
+
+
 def predicted_launches(cfg, height: int, width: int, steps: int,
                        frame_chunk: int, fused: bool, batch: int = 2
                        ) -> dict:
     """Kernel launches of one synthesize() call, derived from the model's
     structure and the port's gates on the shapes each site sees: the
-    dispatcher's routes (attention_route), and on the fused route (bf16
-    eval on a CUDA device) the packed, fused temporal and GroupNorm gates.
+    dispatcher's routes (attention_route), on the fused route (bf16 eval on
+    a CUDA device) the packed, fused temporal and GroupNorm gates, and in
+    eval on a CUDA device, in any dtype, the conv gates under the flags in
+    force (core/flags.py): a ResBlock conv the fused conv kernel takes folds
+    its GroupNorm into the kernel.
     Batched CFG runs cond and uncond as batch 2 (`batch`). Returns the
     counts per UNet eval ("per_eval"), per VAE encode and decode chunk, and
     for the clip (one key per kernel)."""
     from open_pandora_tpu_torch.ops.attention import attention_route
+    from open_pandora_tpu_torch.ops.conv2d import (conv3x3_eligible,
+                                                   conv3x3_fused_eligible)
     from open_pandora_tpu_torch.ops.dual_cross_attention import (
         dual_cross_attention_eligible)
     from open_pandora_tpu_torch.ops.fused_temporal import (
@@ -1163,6 +1385,14 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
         counts["group_norm"] = gn_on * (2 * n_blocks + 2 * 2 + 1 + 1)
         return counts
 
+    for kind, h, w, c, co in conv_sites(u, hz, wz):
+        if conv3x3_fused_eligible(h, w, c, co):
+            per_eval.append("conv3x3_fused")
+            if kind == "res" and fused and c % 32 == 0:
+                per_eval.remove("group_norm")
+        elif conv3x3_eligible(h, w, c, co):
+            per_eval.append("conv3x3")
+
     def tally(seq):
         return {k: seq.count(k) for k in KERNEL_KEYS}
 
@@ -1198,7 +1428,9 @@ def predicted_train_launches(cfg, height: int, width: int, batch: int,
     return counts
 
 
-def run_slice(device, seed: int, steps: int) -> dict:
+def run_slice(device, seed: int, steps: int) -> tuple:
+    """The clip on the default route; returns its launches and the model,
+    which phase 5c runs again under the conv flags."""
     from open_pandora_tpu_torch.core.config import PandoraConfig
     from open_pandora_tpu_torch.eval.inference import build_model, synthesize
 
@@ -1248,7 +1480,8 @@ def run_slice(device, seed: int, steps: int) -> dict:
     if (want["per_eval"] != {"flash": 0, "flash_bwd": 0, "small": 12,
                              "small_bwd": 0, "packed": 20, "packed_multi": 0,
                              "dual_cross": 0, "fused_temporal": 22,
-                             "group_norm": 166}
+                             "group_norm": 166, "conv3x3": 0,
+                             "conv3x3_fused": 0, "fused_geglu": 0}
             or want["encode"]["flash"] != 1
             or want["decode_chunk"]["flash"] != 1):
         raise AssertionError(f"the routing predicts {want}")
@@ -1256,7 +1489,160 @@ def run_slice(device, seed: int, steps: int) -> dict:
         raise AssertionError(f"launches {launches} != predicted {want}")
     if min(launches[k] for k in EVAL_KEYS) <= 0:
         raise AssertionError("a kernel of the path never launched")
-    return launches
+    return launches, model
+
+
+# -- phase 5c: the opt-in conv routes at full width ----------------------------
+
+# (flag, the conv kernel it routes to)
+CONV_ROUTES = (("PANDORA_ENABLE_PCONV2", "conv3x3_fused"),
+               ("PANDORA_ENABLE_PCONV", "conv3x3"))
+CONV_SYNTH_STEPS = 2
+
+
+def run_conv_route(device, seed: int, model) -> dict:
+    """PandoraConfig()'s UNet (the phase-5 model, bf16) under the JAX
+    package's opt-in conv flags, set through flags.overridden: one CFG eval
+    at 320x512 on the default route, under PANDORA_ENABLE_PCONV2 and under
+    PANDORA_ENABLE_PCONV, each routed output held to the default route's by
+    the bf16 rule against an fp32 copy of the UNet on the card; launches
+    against the census. Then synthesize() DDIM-2 and one CFG eval at
+    576x1024 (the whole-C (72, 128, 960 -> 320) site) under
+    PANDORA_ENABLE_PCONV2. Returns the flagged runs' launches."""
+    from open_pandora_tpu_torch.core import flags
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.eval.inference import synthesize
+
+    cfg = PandoraConfig()
+    u = cfg.unet
+    unet = model.model.diffusion_model
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    total = dict.fromkeys(KERNEL_KEYS, 0)
+
+    def inputs(hz, wz):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=device
+                               ).to(torch.bfloat16)
+        return (rnd(2, u.temporal_length, hz, wz, u.in_channels),
+                torch.tensor([600, 600], device=device),
+                rnd(2, u.text_context_len
+                    + u.temporal_length * u.img_tokens_per_frame,
+                    u.context_dim),
+                torch.tensor([3, 3], device=device))
+
+    def evaluate(m, args, timed=True):
+        x, steps, ctx, fs = args
+        dt = next(m.parameters()).dtype
+        if timed:
+            evaluate(m, args, timed=False)          # cold
+            reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = m(x.to(dt), steps, ctx.to(dt), fs=fs)
+        torch.cuda.synchronize()
+        return out.float(), time.perf_counter() - t0
+
+    args = inputs(40, 64)
+    ref = copy.deepcopy(unet).float()
+    eps32, _ = evaluate(ref, args, timed=False)
+    del ref
+    torch.cuda.empty_cache()
+    eps16, wall = evaluate(unet, args)
+    base = predicted_launches(cfg, 320, 512, 1, frame_chunk=8,
+                              fused=True)["per_eval"]
+    got = read_launches()
+    log("slice", json.dumps({"conv_route": "default", "flags":
+                             flags.snapshot(), "eval_s": wall,
+                             "launches": got}))
+    if got != base:
+        raise AssertionError(f"default eval launches {got} != {base}")
+    base_err = (eps16 - eps32).abs().max().item()
+    limit = 2 * base_err + 1e-2 * eps32.abs().mean().item()
+    for flag, key in CONV_ROUTES:
+        with flags.overridden(**{flag: True}):
+            eps, wall = evaluate(unet, args)
+            got = read_launches()
+            want = predicted_launches(cfg, 320, 512, 1, frame_chunk=8,
+                                      fused=True)["per_eval"]
+            snap = flags.snapshot()
+        err32 = (eps - eps32).abs().max().item()
+        err16 = (eps - eps16).abs().max().item()
+        gn_drop = base["group_norm"] - want["group_norm"]
+        log("slice", json.dumps({
+            "conv_route": key, "flags": snap, "eval_s": wall,
+            "max_abs_err_vs_fp32": err32, "max_abs_err_vs_default": err16,
+            "default_max_abs_err_vs_fp32": base_err, "limit": limit,
+            "group_norm_drop": gn_drop, "launches": got,
+            "predicted": want}))
+        # PandoraConfig() at 320x512: 23 routed sites (the input conv, two
+        # Upsample convs, the two convs of the ten 40x64 and 20x32
+        # ResBlocks); under PCONV2 those 20 ResBlock convs take their
+        # GroupNorm along
+        if want[key] != 23 or gn_drop != (20 if key == "conv3x3_fused"
+                                          else 0):
+            raise AssertionError(f"the routing predicts {want}")
+        if got != want:
+            raise AssertionError(f"{flag}: launches {got} != {want}")
+        if not (bool(torch.isfinite(eps).all()) and err32 <= limit
+                and err16 <= limit):
+            raise AssertionError(f"{flag}: routed eval beyond the bf16 rule")
+        for k in KERNEL_KEYS:
+            total[k] += got[k]
+
+    image = np.random.default_rng(seed).integers(0, 256, (360, 640, 3),
+                                                 dtype=np.uint8)
+    timings = {}
+    with flags.overridden(ENABLE_PCONV2=True):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        frames = synthesize(model, image, "a red car drives along a coastal "
+                            "road at sunset", height=320, width=512,
+                            ddim_steps=CONV_SYNTH_STEPS, guidance_scale=7.5,
+                            guidance_rescale=0.7, eta=1.0, fs=3,
+                            generator=torch.Generator(device=device)
+                            .manual_seed(seed + 12), timings=timings)
+        got = read_launches()
+        want = predicted_launches(cfg, 320, 512, CONV_SYNTH_STEPS,
+                                  frame_chunk=8, fused=True)
+        snap = flags.snapshot()
+    log("slice", json.dumps({
+        "conv_route": "synthesize", "flags": snap,
+        "frames": list(frames.shape), "ddim_steps": CONV_SYNTH_STEPS,
+        **timings, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": got}))
+    if frames.shape != (1, 16, 320, 512, 3) or not np.isfinite(frames).all():
+        raise AssertionError(f"bad clip: {frames.shape}")
+    if got != {k: want[k] for k in KERNEL_KEYS}:
+        raise AssertionError(f"conv synthesize: launches {got} != {want}")
+    for k in KERNEL_KEYS:
+        total[k] += got[k]
+
+    args = inputs(72, 128)
+    eps_default, wall_default = evaluate(unet, args, timed=False)
+    with flags.overridden(ENABLE_PCONV2=True):
+        eps, wall = evaluate(unet, args)
+        got = read_launches()
+        want = predicted_launches(cfg, 576, 1024, 1, frame_chunk=2,
+                                  fused=True)["per_eval"]
+        snap = flags.snapshot()
+    log("slice", json.dumps({
+        "conv_route": "conv3x3_fused", "hw": [576, 1024], "flags": snap,
+        "eval_s": wall, "default_eval_s_first_call": wall_default,
+        "max_abs_diff_vs_default": (eps - eps_default).abs().max().item(),
+        "mean_abs_default": eps_default.abs().mean().item(),
+        "launches": got, "predicted": want}))
+    # 34 routed sites at 576x1024: the input conv, three Upsample convs and
+    # the two convs of fifteen ResBlocks, (72, 128, 960 -> 320) whole
+    if want["conv3x3_fused"] != 34:
+        raise AssertionError(f"the routing predicts {want}")
+    if got != want or not bool(torch.isfinite(eps).all()):
+        raise AssertionError(f"576x1024: launches {got} != {want}, or "
+                             "non-finite")
+    for k in KERNEL_KEYS:
+        total[k] += got[k]
+    if min(total[k] for k in ("conv3x3", "conv3x3_fused")) <= 0:
+        raise AssertionError("a kernel of the path never launched")
+    return total
 
 
 # -- phase 6: the trainer at full width ---------------------------------------
@@ -1544,9 +1930,13 @@ def main(argv=None) -> int:
                      must_launch=("dual_cross", "flash", "small", "group_norm"))
     check_train_step(device, args.seed)
     check_world(device, args.seed)
-    paths = {"eval": run_slice(device, args.seed, args.ddim_steps),
-             "wide_heads": run_wide_heads(device, args.seed),
-             "train": run_train(device, args.seed)}
+    launches, model = run_slice(device, args.seed, args.ddim_steps)
+    paths = {"eval": launches,
+             "conv": run_conv_route(device, args.seed, model)}
+    del model
+    torch.cuda.empty_cache()
+    paths["wide_heads"] = run_wide_heads(device, args.seed)
+    paths["train"] = run_train(device, args.seed)
     paths["world"] = run_world(device, args.seed)
 
     # launches: the main paths' runs together, and each on its own
@@ -1554,6 +1944,7 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p[key] for p in paths.values()),
          "launches_by_path": {n: p[key] for n, p in paths.items()},
+         **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
          **summary[name]}
         for name, (key, src, tpu) in KERNELS.items()]}
     print(card, flush=True)

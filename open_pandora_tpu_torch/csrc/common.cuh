@@ -1,6 +1,7 @@
 // Shared helpers for the kernels: element conversion for the two supported
-// element types (fp32 and bf16), warp reductions, and the online-softmax
-// attention tile that the flash and packed attention kernels share.
+// element types (fp32 and bf16), warp reductions, the online-softmax
+// attention tile that the flash and packed attention kernels share, and the
+// cp.async and mma.sync wrappers of the tensor-core kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -273,6 +274,42 @@ __device__ __forceinline__ void attn_stream(
       }
     }
   }
+}
+
+// -- tensor-core helpers (fused_temporal_attn.cu, conv3x3.cu, fused_geglu.cu)
+
+// Two consecutive bf16 values as one 32-bit word; p must be 4-byte aligned.
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate. Fragments
+// (g = lane / 4, t = lane % 4): a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..],
+// A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]}, d = {D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]}; each a and b word holds two k-consecutive
+// values.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Opt into more than 48 KB of dynamic shared memory where a launch needs it.

@@ -4,6 +4,7 @@ and of one LLM-conditioned round at 576x1024 goes, on one CUDA card.
 Run from the repository root:
 
     python -m open_pandora_tpu_torch.eval.profile_step [--seed 0] [--calls 2]
+        [--flags ENABLE_PCONV2[,...]]
 
 Builds the full-width PandoraConfig() in bf16 with random weights and times
 the three parts of `eval.inference.synthesize` at 320x512x16f:
@@ -32,6 +33,12 @@ the host clock around torch.cuda.synchronize() with no profiler attached;
 the kernel time per call under torch.profiler (`device_ms`, the sum of every
 kernel's duration); `idle_share` = 1 - device_ms / wall_ms; and the kernel
 time per call by class and for the costliest kernels.
+
+With --flags (PANDORA_* names, the prefix optional, comma-separated) it
+profiles only the 320x512 CFG UNet eval, on the default route and with
+those flags set (core/flags.py; the part's name and its `flags` key say
+which), in the order default, flagged, flagged, default: an A/B of the
+opt-in conv routes against the library convolution on one card.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from open_pandora_tpu_torch.core import flags
 from open_pandora_tpu_torch.core.config import PandoraConfig
 from open_pandora_tpu_torch.eval.inference import (build_model,
                                                    diffusion_preprocess)
@@ -63,6 +71,8 @@ KERNEL_CLASSES = (
     ("dual_cross_attn", ("dual_cross_attn_kernel",)),
     ("fused_temporal_attn", ("fused_temporal_kernel",)),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("conv3x3", ("conv3x3_bf16_kernel", "conv3x3_f32_kernel")),  # both rows
+    ("fused_geglu", ("fused_geglu_bf16_kernel", "fused_geglu_f32_kernel")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("softmax", ("softmax",)),
@@ -124,7 +134,12 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser("profile_step")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--calls", type=int, default=2)
+    p.add_argument("--flags", default="",
+                   help="comma-separated PANDORA_* flags: profile only the "
+                   "320x512 UNet eval, without and with them")
     args = p.parse_args(argv)
+    on = {f if f.startswith("PANDORA_") else "PANDORA_" + f: True
+          for f in args.flags.split(",") if f}
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     card = subprocess.run(
@@ -167,8 +182,18 @@ def main(argv=None) -> int:
         ctx2 = torch.cat([streams["cond_ctx"], streams["uncond_ctx"]])
         zc2 = torch.cat([streams["z_cond"]] * 2)
         fs2 = torch.cat([streams["fs"]] * 2)
+        def unet_eval():
+            return model.apply_model(x2, t2, ctx2, zc2, fs2)
+        if on:
+            for flagged in (False, True, True, False):
+                with flags.overridden(**(on if flagged else {})):
+                    rec = profile_part("unet_eval" + "+flags" * flagged,
+                                       unet_eval, args.calls)
+                    rec["flags"] = flags.snapshot()
+                print(json.dumps(rec), flush=True)
+            return 0
         parts = (
-            ("unet_eval", lambda: model.apply_model(x2, t2, ctx2, zc2, fs2)),
+            ("unet_eval", unet_eval),
             ("decode", lambda: model.decode(z, frame_chunk=8)),
         )
         for name, fn in parts:

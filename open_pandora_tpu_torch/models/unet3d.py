@@ -17,6 +17,13 @@ Counterpart of open_pandora_tpu/models/unet3d.py, with its two routes:
     the dispatcher (flash at 2560 and 640 tokens and small attention at
     t = 16 on a CUDA device), every norm through the plain fp32-statistics
     GroupNorm/LayerNorm.
+Independently of those two, the JAX package's opt-in conv routes
+(core/flags.py; eval with `kernels.fused_available(x)`, any dtype): under
+PANDORA_ENABLE_PCONV2 the eligible ResBlock convs take the fused conv kernel
+with GroupNorm(+emb)+SiLU folded into its prologue and the skip into its
+epilogue, and the input and Upsample convs the same kernel without them;
+under PANDORA_ENABLE_PCONV those convs take the direct conv kernel. The
+output conv and the stride-2 Downsample stay library convolutions.
 In training mode (`module.training`, JAX's `deterministic=False`) the
 unfused route adds dropout at the JAX sites (attention out-projections, the
 GEGLU feed-forward and the ResBlocks at `cfg.dropout`, the temporal conv
@@ -44,10 +51,11 @@ from open_pandora_tpu_torch.core.config import UNet3DConfig
 from open_pandora_tpu_torch.diffusion.schedule import timestep_embedding
 from open_pandora_tpu_torch.models.layers import (Conv2d, GroupNorm32,
                                                   LayerNorm, PointwiseConv,
-                                                  nearest_up2)
+                                                  SConv3x3, nearest_up2)
 from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.attention import attention
 from open_pandora_tpu_torch.ops.attention_xla import causal_mask
+from open_pandora_tpu_torch.ops.conv2d import conv3x3_fused_eligible
 from open_pandora_tpu_torch.ops.dual_cross_attention import (
     dual_cross_attention, dual_cross_attention_eligible)
 from open_pandora_tpu_torch.ops.fused_temporal import (
@@ -339,18 +347,22 @@ class TemporalConvBlock(nn.Module):
 
 class ResBlock(nn.Module):
     """GN+SiLU+conv, + time embedding, GN+SiLU+conv, skip; then the
-    temporal conv block over (b, t, h, w, c)."""
+    temporal conv block over (b, t, h, w, c). In eval, where the fused conv
+    gate admits a conv (PANDORA_ENABLE_PCONV2; `kernels.fused_available`),
+    its GroupNorm(+emb)+SiLU folds into the conv kernel's prologue and the
+    skip into its epilogue, as on the JAX route (models/unet3d.py:644-670);
+    dropout is the identity there."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
                  use_temporal_conv: bool, dropout: float = 0.0):
         super().__init__()
         self.in_layers = nn.ModuleList([GroupNorm32(in_ch, 1e-5), nn.SiLU(),
-                                        Conv2d(in_ch, out_ch, 3, padding=1)])
+                                        SConv3x3(in_ch, out_ch)])
         self.emb_layers = nn.ModuleList([nn.SiLU(),
                                          nn.Linear(emb_dim, out_ch)])
         self.out_layers = nn.ModuleList([
             GroupNorm32(out_ch, 1e-5), nn.SiLU(), nn.Dropout(dropout),
-            Conv2d(out_ch, out_ch, 3, padding=1)])
+            SConv3x3(out_ch, out_ch)])
         self.skip_connection = (PointwiseConv(in_ch, out_ch)
                                 if in_ch != out_ch else None)
         self.temopral_conv = (TemporalConvBlock(out_ch) if use_temporal_conv
@@ -358,15 +370,34 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 batch_size: int) -> torch.Tensor:
-        # bf16 eval on a CUDA device: the GroupNorm+SiLU kernel, both norms
-        h = self.in_layers[2](self.in_layers[0](x, silu=True))
+        fast = not self.training
+        in_norm, in_conv = self.in_layers[0], self.in_layers[2]
+        out_norm, out_conv = self.out_layers[0], self.out_layers[3]
+
+        def fused_route(c_in, c_out):
+            return (fast and kernels.fused_available(x)
+                    and conv3x3_fused_eligible(x.shape[1], x.shape[2], c_in,
+                                               c_out))
+
+        # elsewhere, bf16 eval on a CUDA device: the GroupNorm+SiLU kernel
+        out_ch = out_conv.out_channels
+        if fused_route(x.shape[-1], out_ch):
+            h = in_conv(x, fast=True, prologue=in_norm.fold(x))
+        else:
+            h = in_conv(in_norm(x, silu=True), fast=fast)
         e = self.emb_layers[1](F.silu(emb))
-        h = h + e[:, None, None, :]
-        h = self.out_layers[3](self.out_layers[2](
-            self.out_layers[0](h, silu=True)))
-        if self.skip_connection is not None:
-            x = self.skip_connection(x)
-        h = x + h
+        if fused_route(out_ch, out_ch):
+            skip = (x if self.skip_connection is None
+                    else self.skip_connection(x))
+            h = out_conv(h, fast=True, prologue=out_norm.fold(h, extra=e),
+                         residual=skip)
+        else:
+            h = h + e[:, None, None, :]
+            h = out_conv(self.out_layers[2](out_norm(h, silu=True)),
+                         fast=fast)
+            if self.skip_connection is not None:
+                x = self.skip_connection(x)
+            h = x + h
         if self.temopral_conv is not None:
             bt, hh, ww, c = h.shape
             hv = h.reshape(batch_size, bt // batch_size, hh, ww, c)
@@ -384,14 +415,14 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Nearest 2x, then a 3x3 conv."""
+    """Nearest 2x, then a 3x3 conv (the conv routes in eval)."""
 
     def __init__(self, ch: int):
         super().__init__()
-        self.conv = Conv2d(ch, ch, 3, padding=1)
+        self.conv = SConv3x3(ch, ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(nearest_up2(x))
+        return self.conv(nearest_up2(x), fast=not self.training)
 
 
 class UNetModel(nn.Module):
@@ -428,7 +459,7 @@ class UNetModel(nn.Module):
                                        use_linear=use_linear,
                                        dropout=cfg.dropout)
 
-        inputs = [nn.ModuleList([Conv2d(cfg.in_channels, mc, 3, padding=1)])]
+        inputs = [nn.ModuleList([SConv3x3(cfg.in_channels, mc)])]
         if cfg.addition_attention:
             self.init_attn = nn.ModuleList([temporal(mc, heads=8,
                                                      use_linear=False)])
@@ -469,6 +500,7 @@ class UNetModel(nn.Module):
                     ds //= 2
                 outputs.append(nn.ModuleList(block))
         self.output_blocks = nn.ModuleList(outputs)
+        # the output conv stays a plain conv: nn.Conv in the JAX package
         self.out = nn.ModuleList([GroupNorm32(ch, 1e-5), nn.SiLU(),
                                   Conv2d(ch, cfg.out_channels, 3, padding=1)])
 
@@ -530,7 +562,7 @@ class UNetModel(nn.Module):
         emb_bt = emb.repeat_interleave(t, dim=0)
 
         h = x.reshape(b * t, hh, ww, x.shape[-1]).to(dtype)
-        h = self.input_blocks[0][0](h)
+        h = self.input_blocks[0][0](h, fast=not self.training)
         if cfg.addition_attention:
             h = self._run(self.init_attn, h, emb_bt, ctx, b)
         hs = [h]

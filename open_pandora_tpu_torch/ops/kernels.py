@@ -46,6 +46,9 @@ _SIGNATURES = {
     + [_F, _F, _I, _P],
     "pandora_fused_temporal_attn": [_P] * 9 + [_I] * 5 + [_L] * 8
     + [_F, _F, _I, _P],
+    "pandora_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
+    "pandora_conv3x3_fused": [_P] * 7 + [_I] * 6 + [_P],
+    "pandora_fused_geglu": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
 }
 
 

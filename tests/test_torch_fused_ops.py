@@ -303,7 +303,8 @@ def _meta_eval(cfg, dtype, height=320, width=512, train=False):
 def test_full_width_eval_routes_as_predicted(monkeypatch):
     """PandoraConfig() at 320x512, bf16 eval on the fused route: launches
     per CFG eval equal chip_smoke's prediction (packed 20, fused temporal
-    22, small attention 12, flash 0, GroupNorm 166)."""
+    22, small attention 12, flash 0, GroupNorm 166; no conv kernel: the
+    conv routes are opt-in)."""
     calls = _spy_unet(monkeypatch)
     monkeypatch.setattr(kernels, "fused_available", lambda x: True)
     cfg = tcfg.PandoraConfig()
@@ -314,7 +315,8 @@ def test_full_width_eval_routes_as_predicted(monkeypatch):
     assert got == want == {"flash": 0, "flash_bwd": 0, "small": 12,
                            "small_bwd": 0, "packed": 20, "packed_multi": 0,
                            "dual_cross": 0, "fused_temporal": 22,
-                           "group_norm": 166}
+                           "group_norm": 166, "conv3x3": 0,
+                           "conv3x3_fused": 0, "fused_geglu": 0}
 
 
 @pytest.mark.parametrize("dtype,train,available", [
