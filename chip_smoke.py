@@ -20,7 +20,10 @@ Phases, each printing its own lines and raising on failure:
               at the UNet's feed-forward widths; kernel, plain and (where one
               PyTorch call computes the same function) library times from
               CUDA events, beside the bound (the least time for the work);
-              shapes a gate refuses raise in the wrapper
+              the flash kernel's k16 tail (D = 72), causal rows with no
+              allowed key (N > M) and LLaMA's causal prefill; shapes a gate
+              refuses, and packed rows off 16-byte alignment, raise in the
+              wrapper
   4. model    a narrow DynamiCrafter at 320x512x16f: in fp32, DDIM-2 on the
               card (unfused route) against the same weights and noise on
               the CPU; in bf16, one CFG UNet eval and one 8-frame decode
@@ -253,14 +256,71 @@ def _sdpa_mask(n, m, causal, device):
 
 
 def check_kernels(device, gen) -> dict:
+    summary = {}
+    check_flash(summary, device, gen)
+    check_small(summary, device, gen)
+    check_attention_bwd(summary, device, gen)
+    check_packed(summary, device, gen)
+    check_dual_cross(summary, device, gen)
+    check_fused_temporal(summary, device, gen)
+    check_group_norm(summary, device, gen)
+    check_conv(summary, device, gen)
+    check_geglu(summary, device, gen)
+    check_refusals(device)
+    return summary
+
+
+def _check_attention(summary: dict, name: str, kern, plain, cases,
+                     flash: bool, device, gen) -> None:
+    """Hold an attention kernel on (B, N, H, D) operands to the bound rule
+    at each (B, N, M, H, D, dtype[, causal]) case; the flash kernel's LSE
+    within 1e-3 too. SDPA on the same operands is the library time."""
+    for case in cases:
+        B, N, M, H, D, dt = case[:6]
+        causal = case[6] if flash else False
+        kw = {"causal": causal} if flash else {}
+        q = torch.randn(B, N, H, D, generator=gen, device=device).to(dt)
+        k = torch.randn(B, M, H, D, generator=gen, device=device).to(dt)
+        v = torch.randn(B, M, H, D, generator=gen, device=device).to(dt)
+        out = kern(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref32 = plain(q.float(), k.float(), v.float(), **kw)
+        ref_dt = plain(q, k, v, **kw)
+        extra = {}
+        if flash:  # (o, lse); the LSE is fp32 on both sides
+            (out, lse), (ref32, lse32), ref_dt = out, ref32, ref_dt[0]
+            extra["lse_max_abs_err"] = (lse - lse32).abs().max().item()
+        err, bound = _kernel_bound(out, ref_dt, ref32)
+        del ref32, ref_dt
+        mask = _sdpa_mask(N, M, causal, device)
+        qs, ks, vs = _heads_first(q, k, v)
+        times = {
+            "ms": cuda_ms(lambda: kern(q, k, v, **kw)),
+            "plain_ms": cuda_ms(lambda: plain(q, k, v, **kw)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask))}
+        # LSE: fp32 statistics of the same fp32 scores, summation order
+        # only; 1e-3 is 1e-4 of its magnitude (about log M + max score)
+        ok = bool(np.isfinite(err) and err <= bound
+                  and extra.get("lse_max_abs_err", 0.0) <= 1e-3)
+        pairs = attention_pairs(N, M, causal)
+        nbytes = (2 * B * N + 2 * B * M) * H * D * q.element_size() \
+            + flash * B * H * N * 4
+        _record(summary, name, {
+            "shape": [B, N, H, D], "M": M,
+            "dtype": str(dt).replace("torch.", ""), **kw,
+            "bound": bound, **extra}, err, ok, times,
+            (nbytes, 4 * B * H * pairs * D, dt))
+        del q, k, v, out
+
+
+def check_flash(summary: dict, device, gen) -> None:
     from open_pandora_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
-    from open_pandora_tpu_torch.ops.small_attention import (
-        small_attention, small_attention_plain)
 
     bf16, f32 = torch.bfloat16, torch.float32
     # (B, N, M, H, D, dtype, causal); the first rows are the slices' shapes
-    flash_cases = [
+    cases = [
         (1, 2560, 2560, 1, 512, bf16, False),   # VAE encoder mid-block
         (8, 2560, 2560, 1, 512, bf16, False),   # VAE decoder mid, per chunk
         (32, 2560, 2560, 5, 64, bf16, False),   # UNet attn1, unfused route
@@ -278,8 +338,22 @@ def check_kernels(device, gen) -> dict:
         (32, 2560, 2560, 4, 80, bf16, False),   # attn1 at head width 80 (5b)
         (32, 640, 640, 8, 80, bf16, False),
         (32, 2560, 2560, 2, 48, bf16, False),   # head width 48 (phase 4)
+        (2, 1000, 1000, 4, 72, bf16, False),    # D % 16 == 8: the k16 tail
+        (2, 1100, 1000, 4, 128, bf16, True),    # causal, N > M: rows with
+        (2, 1100, 1000, 4, 128, f32, True),     # no allowed key
+        (1, 384, 384, 32, 128, bf16, True),     # LLaMA's causal prefill
     ]
-    small_cases = [
+    _check_attention(summary, "flash_fwd",
+                     functools.partial(flash_attention, return_lse=True),
+                     flash_attention_plain, cases, True, device, gen)
+
+
+def check_small(summary: dict, device, gen) -> None:
+    from open_pandora_tpu_torch.ops.small_attention import (
+        small_attention, small_attention_plain)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
         (320, 16, 16, 20, 64, bf16),   # 1280-channel temporal, 10x16
         (80, 16, 16, 20, 64, bf16),    # middle block 5x8
         (5120, 16, 16, 5, 64, bf16),   # temporal attn, 40x64, unfused route
@@ -296,60 +370,8 @@ def check_kernels(device, gen) -> dict:
         (320, 16, 16, 16, 80, bf16),
         (5120, 16, 16, 2, 48, bf16),   # head width 48 (phase 4)
     ]
-    summary = {}
-
-    def run(name, kern, plain, cases, flash):
-        for case in cases:
-            B, N, M, H, D, dt = case[:6]
-            causal = case[6] if flash else False
-            kw = {"causal": causal} if flash else {}
-            q = torch.randn(B, N, H, D, generator=gen, device=device).to(dt)
-            k = torch.randn(B, M, H, D, generator=gen, device=device).to(dt)
-            v = torch.randn(B, M, H, D, generator=gen, device=device).to(dt)
-            out = kern(q, k, v, **kw)
-            torch.cuda.synchronize()
-            ref32 = plain(q.float(), k.float(), v.float(), **kw)
-            ref_dt = plain(q, k, v, **kw)
-            extra = {}
-            if flash:  # (o, lse); the LSE is fp32 on both sides
-                (out, lse), (ref32, lse32), ref_dt = out, ref32, ref_dt[0]
-                extra["lse_max_abs_err"] = (lse - lse32).abs().max().item()
-            err, bound = _kernel_bound(out, ref_dt, ref32)
-            del ref32, ref_dt
-            mask = _sdpa_mask(N, M, causal, device)
-            qs, ks, vs = _heads_first(q, k, v)
-            times = {
-                "ms": cuda_ms(lambda: kern(q, k, v, **kw)),
-                "plain_ms": cuda_ms(lambda: plain(q, k, v, **kw)),
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask))}
-            # LSE: fp32 statistics of the same fp32 scores, summation order
-            # only; 1e-3 is 1e-4 of its magnitude (about log M + max score)
-            ok = bool(np.isfinite(err) and err <= bound
-                      and extra.get("lse_max_abs_err", 0.0) <= 1e-3)
-            pairs = attention_pairs(N, M, causal)
-            nbytes = (2 * B * N + 2 * B * M) * H * D * q.element_size() \
-                + flash * B * H * N * 4
-            _record(summary, name, {
-                "shape": [B, N, H, D], "M": M,
-                "dtype": str(dt).replace("torch.", ""), **kw,
-                "bound": bound, **extra}, err, ok, times,
-                (nbytes, 4 * B * H * pairs * D, dt))
-            del q, k, v, out
-
-    run("flash_fwd", functools.partial(flash_attention, return_lse=True),
-        flash_attention_plain, flash_cases, True)
-    run("small_attn_fwd", small_attention, small_attention_plain,
-        small_cases, False)
-    check_attention_bwd(summary, device, gen)
-    check_packed(summary, device, gen)
-    check_dual_cross(summary, device, gen)
-    check_fused_temporal(summary, device, gen)
-    check_group_norm(summary, device, gen)
-    check_conv(summary, device, gen)
-    check_geglu(summary, device, gen)
-    check_refusals(device)
-    return summary
+    _check_attention(summary, "small_attn_fwd", small_attention,
+                     small_attention_plain, cases, False, device, gen)
 
 
 def check_attention_bwd(summary: dict, device, gen) -> None:
@@ -493,6 +515,7 @@ def check_packed(summary: dict, device, gen) -> None:
         (2, 1100, 10, 64, (3000,), 1.0, bf16),
         (2, 1000, 4, 32, (3000,), 1.0, bf16),
         (2, 1000, 2, 128, (2700,), 1.0, bf16),
+        (2, 1000, 5, 64, (16,), 1.0, bf16),      # M = 16, N off the q tile
     ]
     for B, N, H, D, ms, gate, dt in cases:
         hd = H * D
@@ -573,7 +596,8 @@ def check_refusals(device) -> None:
     32 and 64), the packed and dual cross-attention kernels at a head width
     that is no multiple of 8, the conv kernel at a channel count that is no
     multiple of 8 and the GEGLU kernel at a width that is no multiple of
-    32."""
+    32. The packed wrapper must also refuse rows that are 4-byte but not
+    16-byte aligned, a view its gate (shapes only) admits."""
     from open_pandora_tpu_torch.ops.dual_cross_attention import (
         dual_cross_attention, dual_cross_attention_eligible)
     from open_pandora_tpu_torch.ops.fused_temporal import (
@@ -607,6 +631,10 @@ def check_refusals(device) -> None:
                                       z(8 * c), z(4 * c, c), z(c))
 
     x = torch.zeros(2, 600, 2, 44, dtype=torch.bfloat16, device=device)
+    # packed rows that are 4-byte but not 16-byte aligned: 2 elements into
+    # rows of 130, a shape the gate admits
+    xa = torch.zeros(2, 600, 130, dtype=torch.bfloat16,
+                     device=device)[:, :, 2:]
     with flags.overridden(ENABLE_PCONV=True):
         conv_c12 = conv3x3_eligible(40, 64, 12, 320)
     results = {
@@ -618,6 +646,9 @@ def check_refusals(device) -> None:
             packed_attention_eligible(600, (600,), 2, 88),
             lambda: self_attention_packed(*[x.view(2, 600, 88)] * 3,
                                           heads=2)),
+        "packed_align4": refused(
+            not packed_attention_eligible(600, (600,), 2, 128),
+            lambda: self_attention_packed(xa, xa, xa, heads=2)),
         "dual_cross_d44": refused(
             dual_cross_attention_eligible(600, 600, 600, 44),
             lambda: dual_cross_attention(x, x, x, x, x, 1.0)),

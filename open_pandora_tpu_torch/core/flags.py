@@ -2,9 +2,11 @@
 
 Counterpart of open_pandora_tpu/core/flags.py, with the same API (`flag`,
 `set_flag`, `clear_flag`, `overridden`, `snapshot`, `table`) and the same
-parsing, but only the flags that select a route the port has: the UNet's
-opt-in 3x3 conv routes and their census. Every other route of the port
-(kernel or plain version) is chosen by the tensor's device alone.
+parsing, but only the flags that select a route or an asset the port has:
+the UNet's opt-in 3x3 conv routes and their census, the switches of the
+default bf16 eval route's kernels, and the CLIP merges file. Whether a
+kernel or its plain version serves a call is chosen by the tensor's device
+alone.
 
   - library code asks `flags.flag("PANDORA_X")`, never `os.environ`;
   - a programmatic override wins over the environment
@@ -54,6 +56,28 @@ _SPECS = [
              "Route the 3x3 convs that take neither kernel through nine "
              "shifted matmuls (ops/conv2d.py conv3x3_ninedot) instead of "
              "the library convolution."),
+    # -- the default bf16 eval route's kernels (on unless switched off)
+    FlagSpec("PANDORA_DISABLE_FUSED", "bool", False,
+             "Master off-switch of the fused route: the packed, dual "
+             "cross-attention and fused temporal kernels and the "
+             "GroupNorm+SiLU kernel; their sites take the unfused route "
+             "(models/unet3d.py, ops/fused_norms.py)."),
+    FlagSpec("PANDORA_DISABLE_FUSED_GN", "bool", False,
+             "Disable only the GroupNorm+SiLU kernel "
+             "(ops/fused_norms.py)."),
+    FlagSpec("PANDORA_DISABLE_PACKED", "bool", False,
+             "Route the packed-layout attention sites (attn1, and the dual "
+             "attn2 the packed gate admits) to the head-split route "
+             "(ops/packed_attention.py packed_attention_eligible)."),
+    FlagSpec("PANDORA_DISABLE_DUALCA", "bool", False,
+             "Disable the dual cross-attention kernel; the text and image "
+             "streams take two attentions (ops/dual_cross_attention.py)."),
+    FlagSpec("PANDORA_DISABLE_TNATIVE", "bool", False,
+             "Keep the temporal transformers off the native (b, t, h*w, c) "
+             "stream: transpose to (b*h*w, t, c) (models/unet3d.py)."),
+    # -- pipeline assets
+    FlagSpec("PANDORA_CLIP_BPE", "str", "",
+             "Path to a CLIP BPE merges file (pipeline/tokenizers.py)."),
 ]
 
 REGISTRY: Dict[str, FlagSpec] = {s.name: s for s in _SPECS}

@@ -1,7 +1,9 @@
 // Shared helpers for the kernels: element conversion for the two supported
 // element types (fp32 and bf16), warp reductions, the online-softmax
-// attention tile that the flash and packed attention kernels share, and the
-// cp.async and mma.sync wrappers of the tensor-core kernels.
+// attention tiles (`attn_stream` on the CUDA cores for fp32 flash and the
+// dual cross-attention kernel; the tensor-core `TcTile` for every bf16 launch
+// of the flash and packed attention kernels), and the cp.async, ldmatrix and
+// mma.sync wrappers of the tensor-core kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -276,7 +278,8 @@ __device__ __forceinline__ void attn_stream(
   }
 }
 
-// -- tensor-core helpers (fused_temporal_attn.cu, conv3x3.cu, fused_geglu.cu)
+// -- tensor-core helpers (the attention tiles below, fused_temporal_attn.cu,
+//    conv3x3.cu, fused_geglu.cu)
 
 // Two consecutive bf16 values as one 32-bit word; p must be 4-byte aligned.
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -287,6 +290,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
+}
+
+// The same copy with a source size: 16 copies the piece, 0 reads nothing
+// and zero-fills the 16 bytes of dst.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -311,6 +323,431 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses (16 bytes each) of matrix i, which lands in r[i]; lane l gets
+// row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1 of each (of each
+// transpose with `trans`).
+template <bool kTrans = false>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+// Two fp32 values rounded to bf16 in one word, lo in the low half (the
+// lower k index of an mma operand).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// -- wgmma (sm_90a): warpgroup products with operands in shared memory ------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous product.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory (cp.async
+// included) visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Matrix descriptor of a tile in shared memory laid out with the 128-byte
+// swizzle: rows of 128 bytes (64 bf16), the 16-byte chunk c of row r stored
+// at chunk c ^ (r % 8), atoms of 8 rows 1024-byte aligned. lbo: bytes from
+// one 64-column block to the next (MN-major operands), sbo: bytes from one
+// 8-row group to the next.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+// d (+)= a (64 x 16, shared, K-major descriptor) * b (16 x 64, shared,
+// K-major descriptor) for the warpgroup; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += a (64 x 16 in registers: each warp's 16 rows as the mma.sync A
+// fragment) * b (16 x 64, shared, MN-major descriptor) for the warpgroup.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += a (64 x 16 in registers: each warp's 16 rows as the mma.sync A
+// fragment) * b (16 x 128, shared, MN-major descriptor) for the warpgroup.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// 2^x on the special-function unit (denormal results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -- tensor-core attention tiles, bf16 (flash_fwd.cu, packed_attn_fwd.cu) ---
+//
+// `WgTile`: D <= DMAX <= 128. Two consumer warpgroups, each owning 64 rows
+// of a 128-row q tile. Per key tile of 64 the warpgroup issues S = q k^T as
+// wgmma with both operands in shared memory (q and k K-major), runs the
+// online softmax on the S accumulator fragments in registers (fp32 row max
+// and sum, reduced across the quad of lanes that share a row with two
+// shuffles; exp2 with log2(e) folded into the scale), repacks p as bf16
+// straight from those fragments (the accumulator of two n8 column tiles is
+// the A fragment of one k16 chunk, FlashAttention-2's identity) and issues
+// O += p v as wgmma with p from registers and v MN-major from shared
+// memory. S and p never touch shared memory. K and V tiles stream through
+// a two-stage cp.async ring in the 128-byte-swizzled layout wgmma reads
+// (which also keeps every 16-byte chunk of a column on its own bank
+// group): the next tile's copy is in flight while the current one is
+// multiplied; rows past M are zero-filled by the copy itself (a stale row
+// could hold a NaN, and 0 * NaN is NaN). The k16 tail of a head width with
+// D % 16 == 8 is zeroed once in q and k.
+//
+// Masking is attn_stream's: keys at or past M weigh exactly 0 (score -inf);
+// with `causal` a key col > row + q_offset scores kMaskValue (in the exp2
+// domain; a row with no allowed key then weighs every key alike, as the
+// plain version does, and its log-sum-exp is kMaskValue).
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Natural-log LSE from the exp2-domain row max m and the row sum l.
+__device__ __forceinline__ float tc_lse(float m, float l) {
+  return m == kMaskValue ? kMaskValue
+                         : (m + log2f(fmaxf(l, 1e-37f))) * kLn2;
+}
+
+// The online softmax of one key tile on a warp's S fragments (rows g and
+// g + 8 of its 16, g = lane / 4; n8 column tiles j of keys k0 + 8 j +
+// 2 (lane % 4) + {0, 1}): masks, the running max m and sum l (fp32, l
+// per thread until the caller's quad reduction), the rescale of acc, and s
+// overwritten by p. rbase: the sequence index of row g.
+template <int NT, int DT, bool kCausal>
+__device__ __forceinline__ void tc_softmax(float (&s)[NT][4],
+                                           float (&acc)[DT][4],
+                                           float (&m)[2], float (&l)[2],
+                                           int k0, int M, int rbase,
+                                           int q_offset, float scale_log2) {
+  const int t = threadIdx.x & 3;
+  float sc = scale_log2;
+  if (kCausal || k0 + NT * 8 > M) {  // masked tile: work in the exp2 domain
+    sc = 1.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * t + (e & 1);
+        float x = s[j][e] * scale_log2;
+        if (col >= M)
+          x = -INFINITY;
+        else if (kCausal && col > rbase + 8 * (e >> 1) + q_offset)
+          x = kMaskValue;
+        s[j][e] = x;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx * sc);  // finite: col k0 < M
+    const float alpha = ex2(m[h] - m_new);
+    m[h] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        const float p = ex2(fmaf(s[j][e], sc, -m_new));
+        sum += p;  // fp32, before the rounding for p v
+        s[j][e] = p;
+      }
+    l[h] = alpha * l[h] + sum;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][2 * h] *= alpha;
+      acc[j][2 * h + 1] *= alpha;
+    }
+  }
+}
+
+// Copy rows [0, ROWS) of D <= DMAX bf16 (D % 8 == 0; src and the row stride
+// 16-byte aligned) into a 128-byte-swizzled tile through cp.async,
+// zero-filling rows at or past `valid`. The loop runs over DMAX / 8 pieces
+// a row, so its index splits with shifts.
+template <int ROWS, int DMAX, int NTHREADS>
+__device__ __forceinline__ void sw128_load_rows(unsigned char* dst,
+                                                const __nv_bfloat16* src,
+                                                long long row_stride,
+                                                int valid, int D) {
+  constexpr int kPieces = DMAX / 8;
+  for (int idx = threadIdx.x; idx < ROWS * kPieces; idx += NTHREADS) {
+    const int r = idx / kPieces;
+    const int c = idx % kPieces;
+    if (c * 8 >= D) continue;
+    const bool ok = r < valid;
+    cp_async16(dst + (c >> 3) * ROWS * 128 + r * 128 +
+                   (((c & 7) ^ (r & 7)) << 4),
+               src + (ok ? r * row_stride + c * 8 : 0), ok);
+  }
+}
+
+// Zero the 16-byte chunk D / 8 of every row of a swizzled tile: the k16
+// tail of a head width with D % 16 == 8. The copies never write there.
+template <int ROWS, int NTHREADS>
+__device__ __forceinline__ void sw128_zero_tail(unsigned char* dst, int D) {
+  if (D % 16 == 0) return;
+  const int c = D / 8;
+  for (int r = threadIdx.x; r < ROWS; r += NTHREADS)
+    *reinterpret_cast<uint4*>(dst + (c >> 3) * ROWS * 128 + r * 128 +
+                              (((c & 7) ^ (r & 7)) << 4)) =
+        make_uint4(0, 0, 0, 0);
+}
+
+constexpr int kWgGroups = 2;  // consumer warpgroups per block
+constexpr int kWgThreads = 128 * kWgGroups;
+
+// Resident blocks per SM of the wgmma tile: a D <= 64 block stays under
+// 128 registers a thread, so two blocks (four warpgroups) share an SM and
+// one block's softmax overlaps the other's products.
+template <int DMAX>
+constexpr int kWgMinBlocks = DMAX == 64 ? 2 : 1;
+
+template <int DMAX>
+struct WgTile {
+  static_assert(DMAX == 64 || DMAX == 128, "wgmma tile: DMAX 64 or 128");
+  static constexpr int BQ = 64 * kWgGroups;
+  static constexpr int BK = 64;
+  static constexpr int NCB = DMAX / 64;  // 64-column swizzle blocks
+  static constexpr int NT = BK / 8;      // n8 tiles of a key tile
+  static constexpr int DT = DMAX / 8;    // n8 tiles of the output
+  static constexpr int QB = BQ * 128;    // bytes of a column block of q
+  static constexpr int KB = BK * 128;    // ... of a k or v tile
+  // q, then two stages of k and two of v; 1 KB of slack for the alignment
+  static constexpr size_t smem_bytes =
+      1024 + static_cast<size_t>(NCB) * (QB + 4 * KB);
+
+  unsigned char* q;
+  unsigned char* k;  // stage s at k + s * NCB * KB
+  unsigned char* v;
+
+  __device__ static WgTile carve(unsigned char* smem, int D) {
+    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    WgTile t;
+    t.q = smem + ((1024 - (a & 1023)) & 1023);
+    t.k = t.q + NCB * QB;
+    t.v = t.k + 2 * NCB * KB;
+    sw128_zero_tail<BQ, kWgThreads>(t.q, D);
+    for (int st = 0; st < 2; ++st) {
+      sw128_zero_tail<BK, kWgThreads>(t.k + st * NCB * KB, D);
+      sw128_zero_tail<BK, kWgThreads>(t.v + st * NCB * KB, D);
+    }
+    return t;
+  }
+
+  // Load the block's q rows (rows past `valid` zero).
+  __device__ void load_q(const __nv_bfloat16* src, long long row_stride,
+                         int valid, int D) const {
+    sw128_load_rows<BQ, DMAX, kWgThreads>(q, src, row_stride, valid, D);
+    cp_async_commit();
+  }
+
+  // One key/value stream against the q tile: acc (the warp's 16 rows, D
+  // columns, unnormalised), and per row half h (rows g and g + 8) the
+  // exp2-domain max m and the quad-reduced sum l. k and v point at key row
+  // 0 of this (b, h); key tiles up to kv_end. row0: the sequence index of
+  // the block's first q row.
+  template <bool kCausal>
+  __device__ void stream(float (&acc)[DT][4], float (&m)[2], float (&l)[2],
+                         const __nv_bfloat16* kp, long long ksn,
+                         const __nv_bfloat16* vp, long long vsn, int M, int D,
+                         int row0, int kv_end, float scale_log2,
+                         int q_offset) const {
+    const int warp = threadIdx.x / 32;
+    const int wg = warp / 4;
+    const int g = (threadIdx.x & 31) >> 2;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    float(&accf)[DT * 4] = reinterpret_cast<float(&)[DT * 4]>(acc);
+    const int ntiles = (kv_end + BK - 1) / BK;
+    auto issue = [&](int it) {
+      const int k0 = it * BK;
+      const int valid = min(BK, M - k0);
+      sw128_load_rows<BK, DMAX, kWgThreads>(k + (it & 1) * NCB * KB,
+                                            kp + k0 * ksn, ksn, valid, D);
+      sw128_load_rows<BK, DMAX, kWgThreads>(v + (it & 1) * NCB * KB,
+                                            vp + k0 * vsn, vsn, valid, D);
+      cp_async_commit();
+    };
+    __syncthreads();  // earlier readers of the stages are done
+    issue(0);
+    const unsigned char* qw = q + wg * 64 * 128;
+    for (int it = 0; it < ntiles; ++it) {
+      cp_async_wait<0>();
+      fence_async_shared();
+      __syncthreads();  // tile it (and q) landed; tile it - 1's stage is free
+      if (it + 1 < ntiles) issue(it + 1);
+      const unsigned char* ks = k + (it & 1) * NCB * KB;
+      const unsigned char* vs = v + (it & 1) * NCB * KB;
+
+      // S = q k^T: one m64n64k16 per k16 chunk of the head dim
+      float s[NT][4];
+      float(&sf)[NT * 4] = reinterpret_cast<float(&)[NT * 4]>(s);
+#pragma unroll
+      for (int i = 0; i < NT * 4; ++i) sf[i] = 0.f;
+      reg_fence(sf);  // every operand is written before the fence
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DMAX / 16; ++kc) {
+        if (kc * 16 >= D) break;
+        const int off = (kc & 3) * 32;  // k16 step inside a 128-byte row
+        wgmma_ss_n64(sf, sw128_desc(qw + (kc >> 2) * QB + off, 16, 1024),
+                     sw128_desc(ks + (kc >> 2) * KB + off, 16, 1024), kc);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sf);
+
+      tc_softmax<NT, DT, kCausal>(s, acc, m, l, it * BK, M,
+                                  row0 + warp * 16 + g, q_offset, scale_log2);
+
+      // acc += p v: p (bf16) straight from the S fragments
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) {
+        pa[kc][0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+        pa[kc][1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+        pa[kc][2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+        pa[kc][3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+        reg_fence(pa[kc]);
+      }
+      reg_fence(accf);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) {
+        const uint64_t dv = sw128_desc(vs + kc * 16 * 128, KB, 1024);
+        if constexpr (DMAX == 64)
+          wgmma_rs_n64(accf, pa[kc], dv);
+        else
+          wgmma_rs_n128(accf, pa[kc], dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(accf);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+  }
+};
 
 // Opt into more than 48 KB of dynamic shared memory where a launch needs it.
 template <typename K>

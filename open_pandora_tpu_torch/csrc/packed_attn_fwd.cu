@@ -1,7 +1,7 @@
 // Packed-layout attention forward for Hopper (sm_90a), bf16: one key/value
 // stream, or two with the second scaled by a gate.
 //
-// Replaces the Pallas kernels `_kernel` and `_kernel_multi` in
+// Replaces the Pallas kernels `_kernel` (:104) and `_kernel_multi` (:170) in
 // open_pandora_tpu/ops/packed_attention.py (reached through `_packed_call`
 // and `_packed_call_multi` from `self_attention_packed` and
 // `dual_cross_attention_packed`): the UNet's spatial self-attention (attn1,
@@ -19,126 +19,124 @@
 // (B, N, H*D), so no head-split or transpose copy surrounds the kernel. The
 // TPU kernel keeps the whole packed feature axis per block and masks heads
 // inside 128-lane groups; on the card the packing is only a stride, and a
-// block owns one (b, h, 64-row q tile).
+// block owns one (b, h, q tile).
 //
-// What bounds it on the card: like the flash kernel it shares its key-tile
-// loop with (`attn_stream` in common.cuh), this first version runs both
-// products as scalar fp32 FMAs fed from shared memory, so it is bound by
-// shared-memory bandwidth into the CUDA cores, far below the tensor-core
-// rate. The online softmax walks each stream in 64-key tiles, so M is
-// unbounded and the (N, M) scores never leave the chip; the ragged key edge
-// is masked (weight exactly 0) instead of padded. The gated sum of the two
-// streams happens in registers, and o is written once. Moving the products
-// to mma/wgmma is later work.
+// What bounds it on the card: the products, 4 N (M_0 + M_1) D operations per
+// (b, h), against 989 TFLOP/s of bf16 tensor cores at attn1 (2560, 2304 and
+// 9216 keys, where the bytes are two orders of magnitude below); at attn2
+// (77 + 16 keys) the bytes of q and o, at 3.35 TB/s. The design is
+// `WgTile` (common.cuh): two warpgroups own the 128 rows of a q tile; per
+// 64-key tile each issues S = q k^T as wgmma from 128-byte-swizzled shared
+// memory, runs the online softmax on the S accumulator in registers and
+// issues O += p v as wgmma with p from registers, so neither S nor p leaves
+// the registers and M is unbounded (the long-key regime of row 7 is the
+// same code over more tiles); K/V stream through a two-stage cp.async ring
+// that zero-fills the ragged key edge, and the next tile's copy overlaps
+// the current products. At D <= 64 two blocks share an SM, so one block's
+// softmax overlaps the other's products. Each stream is normalised in fp32,
+// the gate applied in fp32, and o is written once.
 #include "common.cuh"
 
 namespace pandora {
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 struct Stream {
-  const void* k;
-  const void* v;
+  const bf16* k;
+  const bf16* v;
   int M;
   long long ksb, ksn, vsb, vsn;  // batch and row strides, elements
 };
 
-template <typename T, int DMAX, int BK>
-__global__ void __launch_bounds__(kAttnThreads, 1)
-packed_attn_kernel(const T* __restrict__ q, Stream s0, Stream s1,
-                   int nstreams, const float* __restrict__ gate_ptr,
-                   float gate_value, T* __restrict__ o, int N, int D,
-                   long long qsb, long long qsn, long long osb,
-                   long long osn, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const AttnSmem<T> sm = AttnSmem<T>::template carve<BK>(smem, D);
-  constexpr int kNJ = DMAX / 32;
+struct Args {
+  const bf16* q;
+  Stream s[2];
+  const float* gate_ptr;
+  float gate_value;
+  bf16* o;
+  int N, D;
+  long long qsb, qsn, osb, osn;
+  float scale_log2;  // scale * log2(e)
+};
 
-  const int q0 = blockIdx.x * kAttnBQ;
+template <int DMAX, bool kTwo>
+__global__ void __launch_bounds__(kWgThreads, kWgMinBlocks<DMAX>)
+packed_attn_kernel(const Args a) {
+  using Tile = WgTile<DMAX>;
+  constexpr int DT = Tile::DT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tile tile = Tile::carve(smem, a.D);
+  const int q0 = blockIdx.x * Tile::BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const long long hoff = static_cast<long long>(h) * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const long long hoff = static_cast<long long>(h) * a.D;
 
-  load_rows(sm.q, sm.ld, q + b * qsb + q0 * qsn + hoff, qsn,
-            min(kAttnBQ, N - q0), kAttnBQ, D);
-
-  float out[4][kNJ][2];
+  tile.load_q(a.q + b * a.qsb + q0 * a.qsn + hoff, a.qsn,
+              min(Tile::BQ, a.N - q0), a.D);
+  float out[DT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int si = 0; si < (kTwo ? 2 : 1); ++si) {
+    const Stream& st = a.s[si];
+    float acc[DT][4], m[2], l[2];
+    tile.template stream<false>(acc, m, l, st.k + b * st.ksb + hoff, st.ksn,
+                                st.v + b * st.vsb + hoff, st.vsn, st.M, a.D,
+                                q0, st.M, a.scale_log2, 0);
+    const float gate = si == 0 ? 1.f
+                       : a.gate_ptr != nullptr ? *a.gate_ptr
+                                               : a.gate_value;
 #pragma unroll
-    for (int j = 0; j < kNJ; ++j) out[i][j][0] = out[i][j][1] = 0.f;
-
-  for (int si = 0; si < nstreams; ++si) {
-    const Stream& st = si == 0 ? s0 : s1;
-    const T* k = static_cast<const T*>(st.k) + b * st.ksb + hoff;
-    const T* v = static_cast<const T*>(st.v) + b * st.vsb + hoff;
-    float acc[4][kNJ][2];
-    attn_stream<T, DMAX, BK>(sm, acc, k, st.ksn, v, st.vsn, st.M, D, q0,
-                             st.M, scale, 0, 0);
-    const float gate =
-        si == 0 ? 1.f : (gate_ptr != nullptr ? *gate_ptr : gate_value);
+    for (int e = 0; e < 4; ++e) {
+      const float div = l[e >> 1] == 0.f ? 1.f : l[e >> 1];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float l = sm.l[ty + 16 * i];
-      const float div = l == 0.f ? 1.f : l;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        out[i][j][0] += gate * (acc[i][j][0] / div);
-        out[i][j][1] += gate * (acc[i][j][1] / div);
+      for (int j = 0; j < DT; ++j) {
+        const float x = acc[j][e] / div;
+        out[j][e] = si == 0 ? x : out[j][e] + gate * x;
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= N) continue;
-    T* orow = o + b * osb + row * osn + hoff;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + warp * 16 + g + 8 * hh;
+    if (row >= a.N) continue;
+    bf16* orow = a.o + b * a.osb + row * a.osn + hoff;
 #pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const int col = 2 * (tx + 16 * j);
-      if (col < D) Elem<T>::store2(orow + col, out[i][j][0], out[i][j][1]);
+    for (int j = 0; j < DT; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < a.D)
+        Elem<bf16>::store2(orow + col, out[j][2 * hh], out[j][2 * hh + 1]);
     }
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch(const void* q, const Stream& s0, const Stream& s1,
-                   int nstreams, const float* gate_ptr, float gate_value,
-                   void* o, int B, int N, int H, int D, long long qsb,
-                   long long qsn, long long osb, long long osn, float scale,
-                   cudaStream_t stream) {
-  constexpr int BK = 64;
-  const size_t smem = attn_smem_bytes<T, BK>(D);
-  auto kernel = packed_attn_kernel<T, DMAX, BK>;
-  cudaError_t err = allow_smem(kernel, smem);
+template <int DMAX, bool kTwo>
+cudaError_t launch(const Args& a, int B, int H, cudaStream_t stream) {
+  using Tile = WgTile<DMAX>;
+  auto kernel = packed_attn_kernel<DMAX, kTwo>;
+  cudaError_t err = allow_smem(kernel, Tile::smem_bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + kAttnBQ - 1) / kAttnBQ, H, B);
-  kernel<<<grid, kAttnThreads, smem, stream>>>(
-      static_cast<const T*>(q), s0, s1, nstreams, gate_ptr, gate_value,
-      static_cast<T*>(o), N, D, qsb, qsn, osb, osn, scale);
+  dim3 grid((a.N + Tile::BQ - 1) / Tile::BQ, H, B);
+  kernel<<<grid, kWgThreads, Tile::smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const Stream& s0, const Stream& s1,
-                       int nstreams, const float* gate_ptr, float gate_value,
-                       void* o, int B, int N, int H, int D, long long qsb,
-                       long long qsn, long long osb, long long osn,
-                       float scale, cudaStream_t stream) {
-  if (D <= 64)
-    return launch<T, 64>(q, s0, s1, nstreams, gate_ptr, gate_value, o, B, N,
-                         H, D, qsb, qsn, osb, osn, scale, stream);
-  return launch<T, 128>(q, s0, s1, nstreams, gate_ptr, gate_value, o, B, N,
-                        H, D, qsb, qsn, osb, osn, scale, stream);
+template <bool kTwo>
+cudaError_t dispatch_d(const Args& a, int B, int H, cudaStream_t stream) {
+  if (a.D <= 64) return launch<64, kTwo>(a, B, H, stream);
+  return launch<128, kTwo>(a, B, H, stream);
 }
 
 }  // namespace
 }  // namespace pandora
 
 // C interface. q and every k, v hold H heads of width D packed along their
-// last (contiguous) axis; strides are in elements ({batch, row} each).
+// last (contiguous) axis; strides are in elements ({batch, row} each), and
+// every pointer and stride must give 16-byte aligned rows (cp.async).
 // nstreams is 1 or 2; the second stream is scaled by *gate_ptr when that
 // is not null, else by gate_value. o is (B, N, H*D) with strides
 // {o_sb, o_sn}. Returns cudaGetLastError() after the launch (0 on
@@ -157,12 +155,24 @@ extern "C" int pandora_packed_attn_fwd(
       D > 128 || D % 8 != 0 || nstreams < 1 || nstreams > 2 || M0 <= 0 ||
       (nstreams == 2 && M1 <= 0) || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Stream s0{k0, v0, M0, k0_sb, k0_sn, v0_sb, v0_sn};
-  const Stream s1{nstreams == 2 ? k1 : k0, nstreams == 2 ? v1 : v0,
-                  nstreams == 2 ? M1 : M0, k1_sb, k1_sn, v1_sb, v1_sn};
-  const float* g = static_cast<const float*>(gate_ptr);
+  const Args a{static_cast<const bf16*>(q),
+               {Stream{static_cast<const bf16*>(k0),
+                       static_cast<const bf16*>(v0), M0, k0_sb, k0_sn, v0_sb,
+                       v0_sn},
+                Stream{static_cast<const bf16*>(k1),
+                       static_cast<const bf16*>(v1), M1, k1_sb, k1_sn, v1_sb,
+                       v1_sn}},
+               static_cast<const float*>(gate_ptr),
+               gate_value,
+               static_cast<bf16*>(o),
+               N,
+               D,
+               q_sb,
+               q_sn,
+               o_sb,
+               o_sn,
+               scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch_d<__nv_bfloat16>(
-      q, s0, s1, nstreams, g, gate_value, o, B, N, H, D, q_sb, q_sn, o_sb,
-      o_sn, scale, s));
+  return static_cast<int>(nstreams == 2 ? dispatch_d<true>(a, B, H, s)
+                                        : dispatch_d<false>(a, B, H, s));
 }

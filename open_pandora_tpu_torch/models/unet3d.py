@@ -12,8 +12,10 @@ Counterpart of open_pandora_tpu/models/unet3d.py, with its two routes:
     channels with heads 16, 32 or 64 wide run attn1 and attn2 each as one
     fused temporal kernel on the native stream; the other temporal sites
     take the small-attention kernel.
-  - unfused (fp32, training, or a CPU tensor; the JAX package's route off
-    the TPU or with PANDORA_DISABLE_FUSED): every attention goes through
+  - unfused (fp32, training, a CPU tensor, or PANDORA_DISABLE_FUSED, as
+    the JAX package's route off the TPU or under that flag; the finer
+    switches PANDORA_DISABLE_PACKED, _DUALCA, _FUSED_GN and _TNATIVE of
+    core/flags.py turn one kernel off each): every attention goes through
     the dispatcher (flash at 2560 and 640 tokens and small attention at
     t = 16 on a CUDA device), every norm through the plain fp32-statistics
     GroupNorm/LayerNorm.
@@ -47,6 +49,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from open_pandora_tpu_torch.core import flags
 from open_pandora_tpu_torch.core.config import UNet3DConfig
 from open_pandora_tpu_torch.diffusion.schedule import timestep_embedding
 from open_pandora_tpu_torch.models.layers import (Conv2d, GroupNorm32,
@@ -67,9 +70,11 @@ from open_pandora_tpu_torch.ops.packed_attention import (
 
 def _fused_route(module: nn.Module, x: torch.Tensor) -> bool:
     """The JAX fast paths' common gate: bf16 activations, eval (JAX's
-    `deterministic`), and a device the fused kernels serve."""
+    `deterministic`), a device the fused kernels serve, and no
+    PANDORA_DISABLE_FUSED (`_fused_available`, models/unet3d.py:387-398)."""
     return (not module.training and x.dtype == torch.bfloat16
-            and kernels.fused_available(x))
+            and kernels.fused_available(x)
+            and not flags.flag("PANDORA_DISABLE_FUSED"))
 
 
 def fused_temporal_ok(module: nn.Module, x: torch.Tensor, t: int, dim: int,
@@ -285,10 +290,12 @@ class TemporalTransformer(nn.Module):
         y = self.norm(x)
         # The JAX package stays native only where h*w % 32 == 0 (its
         # kernel's position tile); the port's kernel takes a ragged last
-        # tile, so every fused site stays native. Row order does not change
-        # the result.
-        native = not self.causal and fused_temporal_ok(self, y, t, inner,
-                                                       inner, blk0.heads)
+        # tile, so every fused site stays native unless
+        # PANDORA_DISABLE_TNATIVE keeps it on the transposed stream. Row
+        # order does not change the result.
+        native = (not self.causal
+                  and fused_temporal_ok(self, y, t, inner, inner, blk0.heads)
+                  and not flags.flag("PANDORA_DISABLE_TNATIVE"))
         if native:
             y = y.reshape(b, t, h * w, c)
         else:

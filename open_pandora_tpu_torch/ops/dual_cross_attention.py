@@ -20,6 +20,7 @@ from typing import Union
 
 import torch
 
+from open_pandora_tpu_torch.core import flags
 from open_pandora_tpu_torch.ops import kernels
 
 LANES = 128
@@ -38,7 +39,10 @@ def dual_cross_attention_eligible(n: int, mt: int, mi: int, d: int) -> bool:
     q has at least 512 rows, the head is at most 128 wide, each stream's key
     rows padded to 128 are at most 512. One rule more than the JAX gate:
     the head width is a multiple of 8, since the kernel reads rows in 32-bit
-    words and keeps column pairs (no product head is narrower than 40)."""
+    words and keeps column pairs (no product head is narrower than 40).
+    PANDORA_DISABLE_DUALCA refuses every shape, as in JAX."""
+    if flags.flag("PANDORA_DISABLE_DUALCA"):
+        return False
     return (n >= MIN_Q and d <= 128 and d % 8 == 0
             and _ceil_to(mt, LANES) <= MAX_KV_ROWS
             and _ceil_to(mi, LANES) <= MAX_KV_ROWS)

@@ -77,17 +77,17 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           align: int = 4) -> None:
+    """What the kernels take: `check_qkv`, D a multiple of 8 up to 512,
+    rows `align`-byte aligned (pointer and every stride)."""
     kernels.check_qkv("flash_attention", q, k, v)
     D = q.shape[3]
     if D % 8 or D > 512:
         raise ValueError(f"flash_attention: D must be a multiple of 8 up to "
                          f"512, got {D}")
     for t in (q, k, v):
-        # the kernel copies rows in 32-bit words
-        if t.data_ptr() % 4 or any((s * t.element_size()) % 4
-                                   for s in t.stride()[:3]):
-            raise ValueError("flash_attention: rows must be 4-byte aligned")
+        kernels.check_aligned("flash_attention", t, align)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -144,7 +144,8 @@ flash_attention_bwd.launches = 0
 
 
 def _flash_cuda(q, k, v, *, causal, sm_scale):
-    _check(q, k, v)
+    # bf16 rows go through 16-byte cp.async copies, fp32 through 32-bit words
+    _check(q, k, v, 16 if q.dtype == torch.bfloat16 else 4)
     B, N, H, D = q.shape
     M = k.shape[1]
     scale = sm_scale if sm_scale is not None else D ** -0.5

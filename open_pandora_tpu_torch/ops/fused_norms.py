@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from open_pandora_tpu_torch.core import flags
 from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.norms import group_norm
 
@@ -27,7 +28,9 @@ def fused_group_norm_silu(x: torch.Tensor, weight: torch.Tensor,
                           ) -> torch.Tensor:
     """GroupNorm(+SiLU) over channel-last x (N, ..., C), statistics per
     sample over all middle dims. bf16 slabs with ndim >= 3 and C divisible
-    by num_groups route to the kernel where `kernels.fused_available(x)`;
+    by num_groups route to the kernel where `kernels.fused_available(x)`
+    and neither PANDORA_DISABLE_FUSED nor PANDORA_DISABLE_FUSED_GN is set
+    (`_fused_gn_available`, ops/fused_norms.py:300-305);
     everything else takes the plain version. A CPU tensor on the kernel
     route gets the plain version; a CUDA tensor gets the kernel or an
     exception."""
@@ -40,7 +43,9 @@ def fused_group_norm_silu(x: torch.Tensor, weight: torch.Tensor,
     # (2, 40960, 320) temporal conv slabs, the (32, 2560, 640/960) decoder
     # concats and the (8, 163840, 128) VAE decode slabs included.
     kernel_route = (eligible and x.dtype == torch.bfloat16
-                    and kernels.fused_available(x))
+                    and kernels.fused_available(x)
+                    and not flags.flag("PANDORA_DISABLE_FUSED")
+                    and not flags.flag("PANDORA_DISABLE_FUSED_GN"))
     if not kernel_route or x.device.type == "cpu":
         # the plain route, or the kernel's plain version for a CPU tensor
         return group_norm(x, weight, bias, num_groups=num_groups, eps=eps,

@@ -20,6 +20,7 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
+from open_pandora_tpu_torch.core import flags
 from open_pandora_tpu_torch.ops import kernels
 
 LANES = 128
@@ -46,8 +47,10 @@ def packed_attention_eligible(n: int, ms: Sequence[int], heads: int,
     are fixed and its key loop is unbounded), and at every 320x512 and
     576x1024 site the model admits the shapes this gate admits. One rule
     more than the JAX gate: the head width is a multiple of 8, since the
-    kernel reads rows in 32-bit words (no product head is narrower than
-    64)."""
+    kernel reads rows in 16-byte pieces (no product head is narrower than
+    64). PANDORA_DISABLE_PACKED refuses every shape, as in JAX."""
+    if flags.flag("PANDORA_DISABLE_PACKED"):
+        return False
     if heads <= 0 or hd % heads:
         return False
     d = hd // heads
@@ -161,8 +164,8 @@ def dual_cross_attention_packed(q: torch.Tensor, kt: torch.Tensor,
 def check_shapes(q: torch.Tensor, streams: Streams, heads: int) -> None:
     """What the kernel takes, device aside: q (B, N, H*D) and one or two
     streams of k, v (B, M_s, H*D), all bf16, D a multiple of 8 up to 128,
-    rows with a unit last stride and 4-byte alignment, B and H within a
-    launch grid."""
+    rows with a unit last stride and 16-byte alignment (the kernel copies
+    rows in 16-byte cp.async pieces), B and H within a launch grid."""
     name = "packed_attention"
     flat = [t for kv in streams for t in kv]
     if any(t.dtype != torch.bfloat16 for t in (q, *flat)):
@@ -186,7 +189,7 @@ def check_shapes(q: torch.Tensor, streams: Streams, heads: int) -> None:
             raise ValueError(f"{name}: bad k/v shapes {tuple(k.shape)}, "
                              f"{tuple(v.shape)} for q {tuple(q.shape)}")
     for t in (q, *flat):
-        kernels.check_aligned(name, t, 4)
+        kernels.check_aligned(name, t, 16)
 
 
 def _packed_cuda(q, streams, gate, *, heads):

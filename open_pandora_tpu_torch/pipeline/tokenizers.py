@@ -86,19 +86,29 @@ def clip_fallback_encode(text: str, context_length: int = 77) -> List[int]:
 def load_clip_tokenizer(bpe_path: Optional[str] = None,
                         context_length: int = 77
                         ) -> Callable[[str, int], List[int]]:
-    """`encode(text, context_length) -> ids`: the real BPE when `bpe_path`
-    names an existing merges file, else the hash fallback. The returned
-    function's `is_real_bpe` says which."""
-    if bpe_path and os.path.exists(bpe_path):
-        from open_pandora_tpu_torch.pipeline.clip_bpe import (CLIPBPETokenizer,
-                                                        clip_tokenize)
-        tok = CLIPBPETokenizer(bpe_path)
+    """`encode(text, context_length) -> ids`: the real BPE when a merges
+    file is found, else the hash fallback. The search, as in the JAX
+    package: `bpe_path`, then $PANDORA_CLIP_BPE (core/flags.py), then
+    assets/bpe_simple_vocab_16e6.txt.gz and .txt under the repository root.
+    The returned function's `is_real_bpe` says which."""
+    from open_pandora_tpu_torch.core import flags
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    candidates = [bpe_path, flags.flag("PANDORA_CLIP_BPE")] + [
+        os.path.join(root, "assets", name)
+        for name in ("bpe_simple_vocab_16e6.txt.gz",
+                     "bpe_simple_vocab_16e6.txt")]
+    for cand in candidates:
+        if cand and os.path.exists(cand):
+            from open_pandora_tpu_torch.pipeline.clip_bpe import (
+                CLIPBPETokenizer, clip_tokenize)
+            tok = CLIPBPETokenizer(cand)
 
-        def encode(text: str, context_length: int = context_length):
-            return clip_tokenize([text], tok, context_length)[0].tolist()
+            def encode(text: str, context_length: int = context_length):
+                return clip_tokenize([text], tok, context_length)[0].tolist()
 
-        encode.is_real_bpe = True
-        return encode
+            encode.is_real_bpe = True
+            return encode
 
     def fallback(text: str, context_length: int = context_length):
         return clip_fallback_encode(text, context_length)

@@ -62,17 +62,42 @@ def test_encode_matches(pair, text):
         assert got.tolist() == want.tolist()
 
 
-@pytest.mark.parametrize("suffix", [".txt", ".txt.gz"])
-def test_load_from_merges_file_matches(tmp_path, suffix):
-    """The real-BPE route of load_clip_tokenizer: a merges file in open_clip's
-    layout (a version header, then one merge per line)."""
+def _write_merges(tmp_path, suffix: str) -> str:
+    """A merges file in open_clip's layout (a version header, then one
+    merge per line)."""
     path = str(tmp_path / f"bpe_simple_vocab_16e6{suffix}")
     body = "#version: 0.2\n" + "\n".join(" ".join(m) for m in MERGES) + "\n"
     opener = gzip.open if suffix.endswith(".gz") else open
     with opener(path, "wt", encoding="utf-8") as f:
         f.write(body)
+    return path
+
+
+@pytest.mark.parametrize("suffix", [".txt", ".txt.gz"])
+def test_load_from_merges_file_matches(tmp_path, suffix):
+    """The real-BPE route of load_clip_tokenizer, the merges file given as
+    the argument."""
+    path = _write_merges(tmp_path, suffix)
     ours, theirs = load_clip_tokenizer(path, 16), jax_load(path, 16)
     assert ours.is_real_bpe and theirs.is_real_bpe
     for text in TEXTS:
         assert ours(text) == theirs(text)
         assert ours(text, 77) == theirs(text, 77)
+
+
+@pytest.mark.parametrize("via_flag", [True, False])
+def test_load_searches_like_jax(tmp_path, monkeypatch, via_flag):
+    """With no argument both packages search $PANDORA_CLIP_BPE, then the
+    repository's assets/ directory: with the variable naming the merges
+    file both run the real BPE and give the same ids; without it (and no
+    asset) both give the hash stand-in's ids."""
+    if via_flag:
+        monkeypatch.setenv("PANDORA_CLIP_BPE",
+                           _write_merges(tmp_path, ".txt.gz"))
+    else:
+        monkeypatch.delenv("PANDORA_CLIP_BPE", raising=False)
+    ours, theirs = load_clip_tokenizer(), jax_load()
+    assert ours.is_real_bpe == theirs.is_real_bpe == via_flag
+    for text in TEXTS:
+        for n in (16, 77):
+            assert ours(text, n) == theirs(text, n)

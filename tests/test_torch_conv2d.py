@@ -113,7 +113,7 @@ def test_override_beats_environment(monkeypatch):
         assert flags.snapshot() == {}
     assert flags.snapshot() == {"PANDORA_ENABLE_PCONV2": True}
     with pytest.raises(KeyError):
-        flags.set_flag("PANDORA_DISABLE_FUSED", True)   # not a port flag
+        flags.set_flag("PANDORA_STREAMING_GN", True)    # not a port flag
 
 
 # -- plain versions against the Pallas kernels ---------------------------------
