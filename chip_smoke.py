@@ -387,11 +387,12 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
 
     bf16, f32 = torch.bfloat16, torch.float32
     # (B, N, M, H, D, dtype, causal): the training step's attn1 sites at
-    # batch 1 (b*t = 16 frames), a causal N < M with a ragged M, the narrow
-    # model's sites in fp32
+    # batch 1 (b*t = 16 frames), level-0 attn1 of a 576x1024 training step,
+    # a causal N < M with a ragged M, the narrow model's sites in fp32
     flash_cases = [
         (16, 2560, 2560, 5, 64, bf16, False),
         (16, 640, 640, 10, 64, bf16, False),
+        (16, 9216, 9216, 5, 64, bf16, False),
         (2, 1000, 1100, 4, 128, bf16, True),
         (2, 1000, 1100, 4, 128, f32, True),
         (16, 2560, 2560, 2, 32, f32, False),
@@ -441,21 +442,32 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
     for B, N, M, H, D, dt, causal in flash_cases:
         q, k, v = (rnd(B, n, H, D, dt=dt) for n in (N, M, M))
         do = rnd(B, N, H, D, dt=dt)
-        o, lse = flash_attention_plain(q, k, v, causal=causal)
+        # the plain versions by batch slices of at most about 4 GB of fp32
+        # scores: (16, 9216, 9216, 5 heads) is 27 GB in one piece
+        chunk = max(1, int(1e9 // (H * N * M)))
+        fwd = functools.partial(flash_attention_plain, causal=causal)
+        bwd = functools.partial(flash_attention_bwd_plain, causal=causal)
+        o, lse = _by_batch(fwd, chunk)(q, k, v)
         args = (q, k, v, o, lse, do)
         pairs = attention_pairs(N, M, causal)
         nbytes = (4 * B * N + 4 * B * M) * H * D * q.element_size() \
             + B * H * N * 4
+        mask = _sdpa_mask(N, M, causal, device)
+        qs, ks, vs = _heads_first(q, k, v)
+        # SDPA's forward alone, so that the backward's own gap reads as
+        # library_ms - sdpa_fwd_ms
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask))
         hold("flash_bwd",
              {"shape": [B, N, H, D], "M": M,
-              "dtype": str(dt).replace("torch.", ""), "causal": causal},
+              "dtype": str(dt).replace("torch.", ""), "causal": causal,
+              "sdpa_fwd_ms": sdpa_fwd},
              lambda: flash_attention_bwd(*args, causal=causal),
-             lambda: flash_attention_bwd_plain(*args, causal=causal),
-             lambda: flash_attention_bwd_plain(
-                 *[t.float() for t in args], causal=causal),
-             sdpa_fwd_bwd(q, k, v, do, _sdpa_mask(N, M, causal, device)),
+             lambda: _by_batch(bwd, chunk)(*args),
+             lambda: _by_batch(bwd, chunk)(*[t.float() for t in args]),
+             sdpa_fwd_bwd(q, k, v, do, mask),
              (nbytes, 10 * B * H * pairs * D, dt))
-        del q, k, v, do, o, lse, args
+        del q, k, v, do, o, lse, args, qs, ks, vs
 
     for B, N, M, H, D, dt in small_cases:
         q, k, v = (rnd(B, n, H, D, dt=dt) for n in (N, M, M))
@@ -474,13 +486,17 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
 
 
 def _by_batch(fn, chunk: int):
-    """fn applied to batch slices of `chunk` samples, results concatenated:
-    the plain versions hold the (B, H, N, M) scores in fp32, which at
-    (32, 9216, 9216, 5 heads) is 54 GB in one piece."""
+    """fn applied to batch slices of `chunk` samples, results concatenated
+    (each part of a tuple on its own): the plain versions hold the
+    (B, H, N, M) scores in fp32, which at (32, 9216, 9216, 5 heads) is
+    54 GB in one piece."""
     def run(*tensors):
         b = tensors[0].shape[0]
-        return torch.cat([fn(*[t[i:i + chunk] for t in tensors])
-                          for i in range(0, b, chunk)])
+        parts = [fn(*[t[i:i + chunk] for t in tensors])
+                 for i in range(0, b, chunk)]
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat(p) for p in zip(*parts))
+        return torch.cat(parts)
     return run
 
 

@@ -9,36 +9,65 @@
 //   - `_fused_kernel` (reached through `conv3x3_fused`): the GroupNorm(+emb)
 //     fold a, s (B, C) fp32 applied with SiLU on load, the ResBlock skip
 //     added before the single store; launched as pandora_conv3x3_fused.
-// Same arithmetic as the TPU kernels: the zero border lives in the
-// activated domain (the prologue is applied to interior pixels only, so the
-// image edge reads 0, not silu(s)); the prologue result is rounded to the
-// element type before the product; products accumulate in fp32; the bias
-// (fp32) and then the residual are added in fp32; one cast at the end. The
-// TPU package splits the 960-channel 72x128 slab in two convolutions summed
-// in bf16 because it does not fit VMEM whole; this kernel takes every C
-// whole, so there it rounds once where the TPU rounds three times.
+// Both launch the same bf16 core, `conv3x3_wg_kernel`. Same arithmetic as
+// the TPU kernels: the zero border lives in the activated domain (the
+// prologue is applied to interior pixels only, so the image edge reads 0,
+// not silu(s)); the prologue result is rounded to the element type before
+// the product; products accumulate in fp32; the bias (fp32) and then the
+// residual are added in fp32; one cast at the end. The TPU package splits
+// the 960-channel 72x128 slab in two convolutions summed in bf16 because it
+// does not fit VMEM whole; this kernel takes every C whole, so there it
+// rounds once where the TPU rounds three times.
 //
-// GEMM view: M = B*H*W output pixels, N = Co, K = 9*C ordered (tap, channel)
-// with tap = 3*ky + kx. The weight comes in that layout, (Co, 9*C) with K
-// contiguous: the wrapper permutes the module's OIHW weight once. Since C is
-// a multiple of 8, each 8-channel (16-byte) piece of a k chunk lies inside
-// one tap, so a chunk may span taps (C = 8: four taps per 32-wide chunk) and
-// the K tail is zero-filled.
+// GEMM view: M = B*H*W output pixels, N = Co, K = 9*C ordered (tap,
+// channel) with tap = 3*ky + kx. The weight comes in that layout, (Co, 9*C)
+// with K contiguous (`pack_weight` permutes the module's weight once), so
+// the weights of one (tap, 64-channel chunk) are 128 contiguous bytes of
+// every output channel's row.
 //
 // What bounds it on the card: the products (2 * M * Co * 9C operations;
 // 5.3e12 per 320x512 CFG eval over the routed sites) far outweigh the bytes
 // (x read once from device memory, out written once), so they run on the
-// tensor cores with warp-level mma.sync m16n8k16 (bf16 in, fp32
-// accumulate). A block owns 128 pixels x 128 (or 64, where Co is no
-// multiple of 128) output channels and walks K in 32-wide chunks through a
-// two-stage shared-memory ring filled from registers: the loads of chunk
-// k + 1 are in flight while chunk k is multiplied, and the prologue is
-// applied in registers after those products, before the shared-memory
-// store. The halo is re-read from L2 by the nine taps rather than staged
-// once, and the prologue is recomputed per tap and per output-channel tile;
-// wgmma, TMA, a staged and activated halo tile and warp specialisation are
-// for a later PR. fp32 input (the JAX route admits it) takes a scalar-FMA
-// kernel.
+// tensor cores as wgmma. The bf16 design:
+//   - Block tile: 128 output pixels, TH image rows x a TW-wide strip (2 x 64
+//     or, where W < 64, 4 x 32), times BN = 160 output channels (Co = 320,
+//     640, 1280 split evenly; 64 where Co is no multiple of 160). Two
+//     warpgroups, 64 pixels each; the m64 x n160 fp32 accumulator stays in
+//     registers.
+//   - Activated halo, staged once per channel chunk: for each 64-channel
+//     chunk the (TH + 2) x (TW + 2) halo goes to shared memory through
+//     cp.async (pixels outside the image and channels past C zero-filled),
+//     with the 16-byte chunk c of halo pixel p stored at c ^ (p % 8), into
+//     one of two buffers, beside the chunk's scale and shift. With the
+//     prologue, the threads then activate the interior pixels in place,
+//     once per element per block (the border stays 0), before the chunk's
+//     products. (Running that work in slices under the previous chunk's
+//     products ran slower on the card. The sigmoid's form decides its
+//     cost: as `__expf` and `__fdividef` the prologue added 0.39 ms to
+//     the 0.50 of the conv alone at (32,40,64,320->320); as ex2 and
+//     rcp.approx, 0.18 to 0.45; chip_smoke.py's check_conv.)
+//   - Weights through a ring: each (tap, chunk) piece, BN rows of 128 bytes,
+//     goes through a four-slot cp.async ring in the 128-byte swizzle that
+//     wgmma's K-major B descriptor reads, two pieces ahead of the products;
+//     a chunk's halo rides in the group of its first piece. One barrier per
+//     piece; the products of piece i overlap the fragment loads of piece
+//     i + 1 (wgmma.wait_group 1).
+//   - A at a one-pixel shift: a tap's A rows are the halo pixels shifted by
+//     (ky, kx), which no swizzled wgmma descriptor can address (its atoms
+//     are 8 rows of 1024 aligned bytes). So A comes into registers through
+//     ldmatrix at each tap's shift (the XOR swizzle keeps the eight rows of
+//     each 8x8 matrix on distinct banks) and the product is wgmma's `rs`
+//     form: A from registers, B from the descriptor.
+//   - The store: the fp32 tile goes through shared memory, so that the
+//     bias, the residual and the single cast run on whole 16-byte pieces of
+//     output rows.
+//   - Edge cases: below 64 channels (C = 8, the input conv) one halo chunk
+//     holds every channel and the pieces are 64-wide k slices of the packed
+//     weight spanning 64 / C taps, each lane's 8-k half reading its own
+//     tap's shift (five k16 steps at C = 8 where a chunk per tap would take
+//     nine); a C off 64 zero-fills its last chunk; h and w off the tile,
+//     and Co off BN, are masked at the store. Every C is taken whole.
+// fp32 input (the JAX route admits it) takes a scalar-FMA kernel.
 #include "common.cuh"
 
 namespace pandora {
@@ -46,10 +75,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBM = 128;       // output pixels per block (bf16 kernel)
-constexpr int kBK = 32;        // k per chunk
-constexpr int kLd = kBK + 8;   // shared row pitch (elements): 80 bytes
+constexpr int kThreads = 256;  // 8 warps: two warpgroups
 
 struct ConvArgs {
   const void* x;        // (B, H, W, C)
@@ -59,8 +85,8 @@ struct ConvArgs {
   const float* shift;   // (B, C) or null
   const void* res;      // (B, H, W, Co) or null
   void* out;            // (B, H, W, Co)
-  int H, W, C, Co, K;   // K = 9 C
-  long long M;          // B H W
+  int B, H, W, C, Co, K;  // K = 9 C
+  long long M;            // B H W
 };
 
 // Pixel m = (b, y, x) of the output, decoded once per thread and row.
@@ -83,180 +109,391 @@ __device__ __forceinline__ Pixel decode(const ConvArgs& a, long long m) {
 }
 
 // silu(v * a + s) with the multiply and the add rounded apart, as the plain
-// version and the TPU kernel compute it. The loader recomputes it for each
-// of the nine taps and each output-channel tile, so the sigmoid takes the
-// fast exp and divide (a few ulp of fp32, far below the bf16 rounding that
-// follows); below -80 silu is under 1e-33 and reads 0.
+// version and the TPU kernel compute it. The sigmoid is 1 / (1 + 2^(-t
+// log2 e)) on the special-function unit (ex2 and rcp, each within a few ulp
+// of fp32, far below the bf16 rounding that follows); below -80 silu is
+// under 1e-33 and reads 0.
 __device__ __forceinline__ float prologue(float v, float a, float s) {
   const float t = __fadd_rn(__fmul_rn(v, a), s);
-  return t < -80.f ? 0.f : __fdividef(t, 1.f + __expf(-t));
+  const float e = ex2(-kLog2e * t);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
+  return t < -80.f ? 0.f : t * r;
 }
 
-// Eight input channels of one tap for one output pixel, as loaded: `live`
-// where they lie inside the image (only those take the prologue), `bc` the
-// offset of their (batch, channel) in scale and shift.
-struct APiece {
-  uint4 v;
-  long long bc;
-  bool live;
+// -- bf16: the wgmma core ---------------------------------------------------
+
+constexpr int kChunk = 64;     // channels per halo chunk: 128-byte rows
+constexpr int kAhead = 2;      // weight pieces in flight ahead of the products
+constexpr int kRing = kAhead + 2;  // ring slots: the products of piece i - 1
+                                   // may still read while i + 2 lands
+
+template <int TW, int BN>
+struct ConvPlan {
+  static constexpr int TH = 128 / TW;        // image rows per tile
+  static constexpr int HW = TW + 2;          // halo width
+  static constexpr int HP = (TH + 2) * HW;   // halo pixels
+  static constexpr int HB = (HP * 128 + 1023) / 1024 * 1024;  // halo bytes
+  static constexpr int WB = BN * 128;        // bytes of one weight piece
+  static constexpr int SS = 2 * kChunk * 4;  // a chunk's scale and shift
+  static constexpr size_t smem_bytes = 1024 + 2 * static_cast<size_t>(HB) +
+                                       kRing * static_cast<size_t>(WB) +
+                                       2 * SS;
+  static_assert(BN % 8 == 0 && WB % 1024 == 0, "BN rows of 128 bytes");
 };
 
-// Channels [c, c + 8) of tap `k / C` for pixel p; zero outside the image and
-// past K. The load is only issued here: its value is first used in
-// `activate`, after the products of the chunk in flight.
-__device__ __forceinline__ APiece load_a(const ConvArgs& a, const Pixel& p,
-                                         int k) {
-  APiece r;
-  r.v = make_uint4(0u, 0u, 0u, 0u);
-  r.live = false;
-  r.bc = 0;
-  if (!p.valid || k >= a.K) return r;
-  const int tap = k / a.C;
-  const int c = k - tap * a.C;
-  const int dy = tap / 3 - 1;
-  const int dx = tap - 3 * (tap / 3) - 1;
-  const int yy = p.y + dy;
-  const int xx = p.x + dx;
-  if (yy < 0 || yy >= a.H || xx < 0 || xx >= a.W) return r;
-  const long long off =
-      (p.m + static_cast<long long>(dy) * a.W + dx) * a.C + c;
-  r.v = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.x) + off);
-  r.live = true;
-  r.bc = static_cast<long long>(p.b) * a.C + c;
-  return r;
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
-// The prologue on a live piece, rounded to bf16; the zero border stays 0.
-__device__ __forceinline__ uint4 activate(const ConvArgs& a, APiece r) {
-  if (!r.live) return r.v;
-  const float4 s0 = *reinterpret_cast<const float4*>(a.scale + r.bc);
-  const float4 s1 = *reinterpret_cast<const float4*>(a.scale + r.bc + 4);
-  const float4 h0 = *reinterpret_cast<const float4*>(a.shift + r.bc);
-  const float4 h1 = *reinterpret_cast<const float4*>(a.shift + r.bc + 4);
-  const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-  const float sh[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-  bf16* e = reinterpret_cast<bf16*>(&r.v);
+// d += a (64 x 16 in registers: each warp's 16 rows as the mma.sync A
+// fragment) * b (16 x 160, shared, K-major descriptor) for the warpgroup.
+__device__ __forceinline__ void wgmma_rs_kn160(float (&d)[80],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += a (64 x 16 in registers: each warp's 16 rows as the mma.sync A
+// fragment) * b (16 x 64, shared, K-major descriptor) for the warpgroup.
+__device__ __forceinline__ void wgmma_rs_kn64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[BN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  if constexpr (BN == 160)
+    wgmma_rs_kn160(d, a, b);
+  else
+    wgmma_rs_kn64(d, a, b);
+}
+
+// The prologue on the interior pixels of a staged halo chunk, in place,
+// rounded to bf16; border pixels (outside the image) and channels past the
+// chunk's `cc` stay 0. ss: the chunk's 64 scale, then 64 shift values.
+template <int TW, int BN>
+__device__ __forceinline__ void activate_halo(unsigned char* hb,
+                                              const float* ss,
+                                              const ConvArgs& a, int y0,
+                                              int x0, int cc) {
+  using P = ConvPlan<TW, BN>;
+  for (int idx = threadIdx.x; idx < P::HP * 8; idx += kThreads) {
+    const int hp = idx >> 3;
+    const int c = (idx & 7) ^ (hp & 7);  // logical chunk of this piece
+    const int hy = hp / P::HW;
+    const int y = y0 + hy - 1;
+    const int x = x0 + hp - hy * P::HW - 1;
+    if (c * 8 >= cc || y < 0 || y >= a.H || x < 0 || x >= a.W) continue;
+    const float4 s0 = *reinterpret_cast<const float4*>(ss + c * 8);
+    const float4 s1 = *reinterpret_cast<const float4*>(ss + c * 8 + 4);
+    const float4 h0 = *reinterpret_cast<const float4*>(ss + kChunk + c * 8);
+    const float4 h1 =
+        *reinterpret_cast<const float4*>(ss + kChunk + c * 8 + 4);
+    const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float sh[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+    uint4* p = reinterpret_cast<uint4*>(hb + idx * 16);
+    uint4 v = *p;
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    e[i] = __float2bfloat16(prologue(__bfloat162float(e[i]), sc[i], sh[i]));
-  return r.v;
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(e[i]);
+      e[i] = __floats2bfloat162_rn(
+          prologue(f.x, sc[2 * i], sh[2 * i]),
+          prologue(f.y, sc[2 * i + 1], sh[2 * i + 1]));
+    }
+    *p = v;
+  }
 }
 
-// Eight k values [k, k + 8) of weight row n; zero past Co and K.
-__device__ __forceinline__ uint4 load_b(const ConvArgs& a, int n, int k) {
-  if (n >= a.Co || k >= a.K) return make_uint4(0u, 0u, 0u, 0u);
-  return *reinterpret_cast<const uint4*>(
-      static_cast<const bf16*>(a.w) + static_cast<long long>(n) * a.K + k);
-}
+// grid (B x row tiles x strips, Co tiles); one block of two warpgroups.
+template <int TW, int BN, bool kPro, bool kRes>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_wg_kernel(const ConvArgs a) {
+  using P = ConvPlan<TW, BN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sa = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  unsigned char* halo = smem + ((1024 - (sa & 1023)) & 1023);  // 2 buffers
+  unsigned char* ring = halo + 2 * P::HB;
+  float* sshift = reinterpret_cast<float*>(ring + kRing * P::WB);  // 2 bufs
 
-template <int BN, bool kPro, bool kRes>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_bf16_kernel(const ConvArgs a) {
-  constexpr int kWN = BN / 32;           // warps along N, 32 columns each
-  constexpr int kWM = 8 / kWN;           // warps along M
-  constexpr int kWarpRows = kBM / kWM;
-  constexpr int kMT = kWarpRows / 16;    // m16 tiles per warp
-  constexpr int kNT = 4;                 // n8 tiles per warp
-  constexpr int kBRows = BN / 64;        // weight rows each thread loads
-  __shared__ __align__(16) bf16 sA[2][kBM * kLd];
-  __shared__ __align__(16) bf16 sB[2][BN * kLd];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int wm = warp / kWN;
-  const int wn = warp % kWN;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int strips = (a.W + TW - 1) / TW;
+  const int rows = (a.H + P::TH - 1) / P::TH;
+  const int x0 = static_cast<int>(blockIdx.x % strips) * TW;
+  const int y0 = static_cast<int>(blockIdx.x / strips % rows) * P::TH;
+  const int b = static_cast<int>(blockIdx.x / strips / rows);
   const int n0 = blockIdx.y * BN;
+  const int nchunks = (a.C + kChunk - 1) / kChunk;
+  const int nsteps = 9 * nchunks;
+  const bf16* xb = static_cast<const bf16*>(a.x) +
+                   static_cast<long long>(b) * a.H * a.W * a.C;
+  const bf16* wb = static_cast<const bf16*>(a.w) +
+                   static_cast<long long>(n0) * a.K;
 
-  // each thread stages rows tid / 4 (+ 64) of both tiles, k piece tid % 4
-  const int row = tid / 4;
-  const int kp = (tid % 4) * 8;
-  const Pixel px[2] = {decode(a, m0 + row), decode(a, m0 + row + 64)};
-  APiece ra[2];
-  uint4 rb[kBRows];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) ra[i] = load_a(a, px[i], k0 + kp);
-#pragma unroll
-    for (int i = 0; i < kBRows; ++i) rb[i] = load_b(a, n0 + row + 64 * i,
-                                                    k0 + kp);
+  // the halo of `chunk` into its buffer (chunk % 2)
+  auto load_halo = [&](int chunk) {
+    const int c0 = chunk * kChunk;
+    const int cc = min(kChunk, a.C - c0);
+    unsigned char* dst = halo + (chunk & 1) * P::HB;
+    if (kPro && threadIdx.x < 32) {  // the chunk's scale, then its shift
+      const int q = threadIdx.x & 15;
+      const float* src = threadIdx.x < 16 ? a.scale : a.shift;
+      const bool ok = q * 4 < cc;
+      cp_async16(sshift + (chunk & 1) * 2 * kChunk + threadIdx.x * 4,
+                 src + static_cast<long long>(b) * a.C + c0 + (ok ? q * 4 : 0),
+                 ok);
+    }
+    for (int idx = threadIdx.x; idx < P::HP * 8; idx += kThreads) {
+      const int hp = idx >> 3;
+      const int c = idx & 7;
+      const int hy = hp / P::HW;
+      const int y = y0 + hy - 1;
+      const int x = x0 + hp - hy * P::HW - 1;
+      const bool ok = c * 8 < cc && y >= 0 && y < a.H && x >= 0 && x < a.W;
+      cp_async16(dst + hp * 128 + ((c ^ (hp & 7)) << 4),
+                 ok ? xb + (static_cast<long long>(y) * a.W + x) * a.C + c0 +
+                          c * 8
+                    : xb,
+                 ok);
+    }
   };
-  auto stash = [&](int s) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint4*>(&sA[s][(row + 64 * i) * kLd + kp]) =
-          kPro ? activate(a, ra[i]) : ra[i].v;
-#pragma unroll
-    for (int i = 0; i < kBRows; ++i)
-      *reinterpret_cast<uint4*>(&sB[s][(row + 64 * i) * kLd + kp]) = rb[i];
-  };
-
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nk = (a.K + kBK - 1) / kBK;
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int kc = 0; kc < nk; ++kc) {
-    const int s = kc & 1;
-    if (kc + 1 < nk) fetch((kc + 1) * kBK);  // in flight during the products
-    const bf16* As = sA[s];
-    const bf16* Bs = sB[s];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[kMT][4];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const bf16* ap = As + (wm * kWarpRows + i * 16 + g) * kLd + kk + tig * 2;
-        af[i][0] = ld32(ap);
-        af[i][1] = ld32(ap + 8 * kLd);
-        af[i][2] = ld32(ap + 8);
-        af[i][3] = ld32(ap + 8 * kLd + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const bf16* bp = Bs + (wn * 32 + j * 8 + g) * kLd + kk + tig * 2;
-        const uint32_t bfrag[2] = {ld32(bp), ld32(bp + 8)};
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) mma_bf16(acc[i][j], af[i], bfrag);
+  // cp.async group j: weight piece j (tap j % 9 of chunk j / 9) and, when
+  // j opens a chunk, that chunk's halo (and its scale and shift)
+  auto issue = [&](int j) {
+    if (j < nsteps) {
+      const int chunk = j / 9;
+      const int tap = j - 9 * chunk;
+      const int c0 = chunk * kChunk;
+      const int cc = min(kChunk, a.C - c0);
+      if (tap == 0) load_halo(chunk);
+      unsigned char* dst = ring + (j % kRing) * P::WB;
+      const bf16* src = wb + tap * a.C + c0;
+      for (int idx = threadIdx.x; idx < BN * 8; idx += kThreads) {
+        const int r = idx >> 3;
+        const int c = idx & 7;
+        const bool ok = n0 + r < a.Co && c * 8 < cc;
+        cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),
+                   ok ? src + static_cast<long long>(r) * a.K + c * 8 : src,
+                   ok);
       }
     }
-    if (kc + 1 < nk) stash(s ^ 1);  // stage s ^ 1 was last read at kc - 1
-    __syncthreads();
-  }
+    cp_async_commit();
+  };
 
-  // epilogue: + bias, + residual, in fp32; one cast
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  // this lane's ldmatrix row: pixel warp * 16 + (lane & 15) of the tile, at
+  // halo pixel hp0 for tap (0, 0); its k half (lane >> 4)
+  const int pix = warp * 16 + (lane & 15);
+  const int hp0 = pix / TW * P::HW + pix % TW;
+  const int khalf = lane >> 4;
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  uint32_t af[3][4][4];  // three taps' A fragments: one in flight, one next
+
+  if (a.C < kChunk) {
+    // every channel fits one halo chunk: the pieces are 64-wide k slices of
+    // the packed weight, each spanning 64 / C taps (C = 8: eight taps and
+    // then one), and each lane's 8-k half of a k16 step reads its own
+    // tap's shift; k at or past 9 C reads zero weights
+    const int npieces = (a.K + kChunk - 1) / kChunk;
+    auto issue_small = [&](int j) {
+      if (j < npieces) {
+        if (j == 0) load_halo(0);
+        unsigned char* dst = ring + (j % kRing) * P::WB;
+        for (int idx = threadIdx.x; idx < BN * 8; idx += kThreads) {
+          const int r = idx >> 3;
+          const int k = j * kChunk + (idx & 7) * 8;
+          const bool ok = n0 + r < a.Co && k < a.K;
+          cp_async16(dst + r * 128 + (((idx & 7) ^ (r & 7)) << 4),
+                     ok ? wb + static_cast<long long>(r) * a.K + k : wb, ok);
+        }
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) issue_small(j);
+    for (int j = 0; j < npieces; ++j) {
+      cp_async_wait<kAhead - 1>();
+      fence_async_shared();
+      __syncthreads();
+      issue_small(j + kAhead);
+      if (kPro && j == 0) {
+        activate_halo<TW, BN>(halo, sshift, a, y0, x0, a.C);
+        __syncthreads();
+      }
+      uint32_t A[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        const int k = j * kChunk + kc * 16 + khalf * 8;
+        if (k - khalf * 8 >= a.K) break;
+        const int tap = min(k / a.C, 8);
+        const int c8 = (k - tap * a.C) >> 3;
+        const int hp = hp0 + (tap / 3) * P::HW + tap % 3;
+        ldsm_x4(A[kc], halo + hp * 128 + ((c8 ^ (hp & 7)) << 4));
+      }
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) reg_fence(A[kc]);
+      reg_fence(acc);
+      wgmma_fence();
+      const unsigned char* ws = ring + (j % kRing) * P::WB;
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        if (j * kChunk + kc * 16 < a.K)
+          wgmma_rs_k<BN>(acc, A[kc], sw128_desc(ws + kc * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) issue(j);
+    for (int chunk = 0; chunk < nchunks; ++chunk) {
+      const unsigned char* hb = halo + (chunk & 1) * P::HB;
+      const int cc = min(kChunk, a.C - chunk * kChunk);
+      const int nk = (cc + 15) / 16;  // k16 steps of this chunk
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int i = chunk * 9 + tap;
+        cp_async_wait<kAhead - 1>();
+        fence_async_shared();
+        __syncthreads();  // group i (piece i, any halo in it) landed; the
+                          // slot of piece i - 2 is free
+        issue(i + kAhead);
+        if (kPro && tap == 0) {
+          activate_halo<TW, BN>(halo + (chunk & 1) * P::HB,
+                                sshift + (chunk & 1) * 2 * kChunk, a, y0, x0,
+                                cc);
+          __syncthreads();
+        }
+        const int hp = hp0 + (tap / 3) * P::HW + tap % 3;
+        uint32_t(&A)[4][4] = af[tap % 3];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+          if (kc < nk)
+            ldsm_x4(A[kc],
+                    hb + hp * 128 + (((2 * kc + khalf) ^ (hp & 7)) << 4));
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) reg_fence(A[kc]);
+        reg_fence(acc);
+        wgmma_fence();
+        const unsigned char* ws = ring + (i % kRing) * P::WB;
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc)
+          if (kc < nk)
+            wgmma_rs_k<BN>(acc, A[kc], sw128_desc(ws + kc * 32, 16, 1024));
+        wgmma_commit();
+        wgmma_wait_one();
+      }
+    }
+  }
+  wgmma_wait_all();
+  reg_fence(acc);
+
+  // epilogue: the fp32 tile goes through shared memory (the halo and ring
+  // are free now) so that each thread then writes whole 16-byte pieces of
+  // an output row: + bias, + residual, in fp32; one cast
+  constexpr int kPitch = BN + 4;  // floats: fragment writes conflict-free
+  static_assert(128 * kPitch * 4 + 1024 <= P::smem_bytes, "staging");
+  float* stage = reinterpret_cast<float*>(halo);
+  __syncthreads();  // every warp's last fragment loads are done
+  {
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        *reinterpret_cast<float2*>(stage + (warp * 16 + g + 8 * hh) * kPitch +
+                                   8 * j + 2 * t) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  }
+  __syncthreads();
   bf16* out = static_cast<bf16*>(a.out);
   const bf16* res = static_cast<const bf16*>(a.res);
+  for (int idx = threadIdx.x; idx < 128 * (BN / 8); idx += kThreads) {
+    const int p = idx / (BN / 8);
+    const int col = n0 + (idx - p * (BN / 8)) * 8;
+    const int y = y0 + p / TW;
+    const int x = x0 + p % TW;
+    if (y >= a.H || x >= a.W || col >= a.Co) continue;  // Co % 8 == 0
+    const float* sv = stage + p * kPitch + col - n0;
+    const float4 v0 = *reinterpret_cast<const float4*>(sv);
+    const float4 v1 = *reinterpret_cast<const float4*>(sv + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(a.bias + col);
+    const float4 b1 = *reinterpret_cast<const float4*>(a.bias + col + 4);
+    float v[8] = {v0.x + b0.x, v0.y + b0.y, v0.z + b0.z, v0.w + b0.w,
+                  v1.x + b1.x, v1.y + b1.y, v1.z + b1.z, v1.w + b1.w};
+    const long long off =
+        ((static_cast<long long>(b) * a.H + y) * a.W + x) * a.Co + col;
+    if (kRes) {
+      const uint4 r = *reinterpret_cast<const uint4*>(res + off);
+      const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long m = m0 + wm * kWarpRows + i * 16 + g + 8 * half;
-      if (m >= a.M) continue;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int col = n0 + wn * 32 + j * 8 + tig * 2;
-        if (col >= a.Co) continue;  // Co % 8 == 0: col + 1 < Co too
-        float v0 = acc[i][j][2 * half] + a.bias[col];
-        float v1 = acc[i][j][2 * half + 1] + a.bias[col + 1];
-        if (kRes) {
-          const float2 r = Elem<bf16>::load2(res + m * a.Co + col);
-          v0 += r.x;
-          v1 += r.y;
-        }
-        Elem<bf16>::store2(out + m * a.Co + col, v0, v1);
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(r2[i]);
+        v[2 * i] += f.x;
+        v[2 * i + 1] += f.y;
       }
     }
+    uint4 o;
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(out + off) = o;
+  }
 }
 
 // fp32: the same function on scalar FMAs. A block owns 64 pixels x 64
@@ -345,30 +582,45 @@ conv3x3_f32_kernel(const ConvArgs a) {
   }
 }
 
+template <int TW, int BN, bool kPro, bool kRes>
+cudaError_t launch_wg(const ConvArgs& a, cudaStream_t stream) {
+  using P = ConvPlan<TW, BN>;
+  auto kernel = conv3x3_wg_kernel<TW, BN, kPro, kRes>;
+  const cudaError_t err = allow_smem(kernel, P::smem_bytes);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>(a.B) *
+                          ((a.H + P::TH - 1) / P::TH) *
+                          ((a.W + TW - 1) / TW);
+  const dim3 grid(static_cast<unsigned>(tiles), (a.Co + BN - 1) / BN);
+  kernel<<<grid, kThreads, P::smem_bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int TW, bool kPro, bool kRes>
+cudaError_t launch_bn(const ConvArgs& a, cudaStream_t stream) {
+  return a.Co % 160 == 0 ? launch_wg<TW, 160, kPro, kRes>(a, stream)
+                         : launch_wg<TW, 64, kPro, kRes>(a, stream);
+}
+
 template <bool kPro, bool kRes>
 cudaError_t launch(const ConvArgs& a, int dtype, cudaStream_t stream) {
   if (dtype == kFloat32) {
     const dim3 grid(static_cast<unsigned>((a.M + kFM - 1) / kFM),
                     (a.Co + kFN - 1) / kFN);
     conv3x3_f32_kernel<kPro, kRes><<<grid, kThreads, 0, stream>>>(a);
-  } else if (a.Co % 128 == 0) {
-    const dim3 grid(static_cast<unsigned>((a.M + kBM - 1) / kBM),
-                    a.Co / 128);
-    conv3x3_bf16_kernel<128, kPro, kRes><<<grid, kThreads, 0, stream>>>(a);
-  } else {
-    const dim3 grid(static_cast<unsigned>((a.M + kBM - 1) / kBM),
-                    (a.Co + 63) / 64);
-    conv3x3_bf16_kernel<64, kPro, kRes><<<grid, kThreads, 0, stream>>>(a);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  // strips of 64 pixels where the image is that wide, else of 32
+  return a.W >= 64 ? launch_bn<64, kPro, kRes>(a, stream)
+                   : launch_bn<32, kPro, kRes>(a, stream);
 }
 
 int run(const void* x, const void* w, const void* bias, const void* scale,
         const void* shift, const void* res, void* out, int B, int H, int W,
         int C, int Co, int dtype, void* stream) {
   const long long M = static_cast<long long>(B) * H * W;
-  // C and Co multiples of 8 (16-byte pieces); the grid's x extent below
-  // 2^31 and its y extent (Co / 64) within 65535
+  // C and Co multiples of 8 (16-byte pieces); the grid's x extent (pixel
+  // tiles of 64 or more) below 2^31 and its y extent (Co / 64) within 65535
   if ((dtype != kFloat32 && dtype != kBFloat16) || B <= 0 || H <= 0 ||
       W <= 0 || C <= 0 || Co <= 0 || C % 8 != 0 || Co % 8 != 0 ||
       9LL * C > (1LL << 30) || (M + 63) / 64 >= (1LL << 31) ||
@@ -382,6 +634,7 @@ int run(const void* x, const void* w, const void* bias, const void* scale,
   a.shift = static_cast<const float*>(shift);
   a.res = res;
   a.out = out;
+  a.B = B;
   a.H = H;
   a.W = W;
   a.C = C;

@@ -35,10 +35,11 @@ kernel's duration); `idle_share` = 1 - device_ms / wall_ms; and the kernel
 time per call by class and for the costliest kernels.
 
 With --flags (PANDORA_* names, the prefix optional, comma-separated) it
-profiles only the 320x512 CFG UNet eval, on the default route and with
-those flags set (core/flags.py; the part's name and its `flags` key say
-which), in the order default, flagged, flagged, default: an A/B of the
-opt-in conv routes against the library convolution on one card.
+profiles only the CFG UNet eval, at 320x512 and then on a 72x128 latent
+(576x1024), each on the default route and with those flags set
+(core/flags.py; the part's name and its `flags` key say which), in the
+order default, flagged, flagged, default: an A/B of the opt-in conv routes
+against the library convolution on one card.
 """
 
 from __future__ import annotations
@@ -65,14 +66,15 @@ from open_pandora_tpu_torch.train.step import TrainState, make_finetune_step
 KERNEL_CLASSES = (
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel",
                    "flash_fwd_wide_kernel")),
-    ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
+    ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+                   "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")),
     ("small_attn_fwd", ("small_attn_fwd_kernel",)),
     ("small_attn_bwd", ("small_attn_bwd_kernel",)),
     ("packed_attn_fwd", ("packed_attn_kernel",)),   # both regimes
     ("dual_cross_attn", ("dual_cross_attn_kernel",)),
     ("fused_temporal_attn", ("fused_temporal_kernel",)),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
-    ("conv3x3", ("conv3x3_bf16_kernel", "conv3x3_f32_kernel")),  # both rows
+    ("conv3x3", ("conv3x3_wg_kernel", "conv3x3_f32_kernel")),  # both rows
     ("fused_geglu", ("fused_geglu_bf16_kernel", "fused_geglu_f32_kernel")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -137,7 +139,7 @@ def main(argv=None) -> int:
     p.add_argument("--calls", type=int, default=2)
     p.add_argument("--flags", default="",
                    help="comma-separated PANDORA_* flags: profile only the "
-                   "320x512 UNet eval, without and with them")
+                   "UNet eval (320x512, 576x1024), without and with them")
     args = p.parse_args(argv)
     on = {f if f.startswith("PANDORA_") else "PANDORA_" + f: True
           for f in args.flags.split(",") if f}
@@ -186,12 +188,21 @@ def main(argv=None) -> int:
         def unet_eval():
             return model.apply_model(x2, t2, ctx2, zc2, fs2)
         if on:
-            for flagged in (False, True, True, False):
-                with flags.overridden(**(on if flagged else {})):
-                    rec = profile_part("unet_eval" + "+flags" * flagged,
-                                       unet_eval, args.calls)
-                    rec["flags"] = flags.snapshot()
-                print(json.dumps(rec), flush=True)
+            # the same eval on a 72x128 latent (576x1024), the same context
+            z_hi = torch.randn(*z.shape[:2], 576 // 8, 1024 // 8, z.shape[-1],
+                               generator=gen, device=dev, dtype=model.dtype)
+            x2_hi = torch.cat([z_hi, z_hi])
+
+            def unet_eval_hi():
+                return model.apply_model(x2_hi, t2, ctx2, x2_hi, fs2)
+            for name, fn in (("unet_eval", unet_eval),
+                             ("unet_eval_576x1024", unet_eval_hi)):
+                for flagged in (False, True, True, False):
+                    with flags.overridden(**(on if flagged else {})):
+                        rec = profile_part(name + "+flags" * flagged, fn,
+                                           args.calls)
+                        rec["flags"] = flags.snapshot()
+                    print(json.dumps(rec), flush=True)
             return 0
         parts = (
             ("unet_eval", unet_eval),

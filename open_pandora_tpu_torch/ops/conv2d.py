@@ -279,6 +279,8 @@ def _conv_cuda(x: torch.Tensor, packed: torch.Tensor,
     co = packed.shape[0]
     bias = (torch.zeros(co, dtype=torch.float32, device=x.device)
             if b is None else b.float().contiguous())
+    if bias.data_ptr() % 16:  # the kernel reads it in 16-byte pieces
+        bias = bias.clone()
     scale = None if scale is None else scale.float().contiguous()
     shift = None if shift is None else shift.float().contiguous()
     residual = None if residual is None else residual.to(x.dtype).contiguous()

@@ -163,9 +163,13 @@ def _flash_cuda(q, k, v, *, causal, sm_scale):
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, sm_scale):
-    do = do if do.stride(-1) == 1 else do.contiguous()
-    _check(q, k, v)
-    _check(do, k, v)
+    # bf16 rows go through 16-byte cp.async copies, fp32 through 32-bit words
+    align = 16 if q.dtype == torch.bfloat16 else 4
+    if do.stride(-1) != 1 or do.data_ptr() % align or any(
+            (s * do.element_size()) % align for s in do.stride()[:-1]):
+        do = do.contiguous()
+    _check(q, k, v, align)
+    _check(do, k, v, align)
     B, N, H, D = q.shape
     M = k.shape[1]
     if D > BWD_MAX_HEAD_DIM:

@@ -118,8 +118,11 @@ def test_override_beats_environment(monkeypatch):
 
 # -- plain versions against the Pallas kernels ---------------------------------
 
+# the last two: C = 8 (the input conv's width) into a Co off the kernel's
+# 160-channel tile, and one whole 64-channel chunk into the same Co
 @pytest.mark.parametrize("shape", [(2, 8, 16, 32, 32), (1, 9, 13, 24, 40),
-                                   (2, 16, 8, 8, 64)])
+                                   (2, 16, 8, 8, 64), (2, 6, 10, 8, 72),
+                                   (1, 9, 13, 64, 72)])
 def test_direct_plain_matches_pallas(_interpret_pallas, shape):
     B, H, W, C, Co = shape
     x, w, b = _rng_arrays(0, (B, H, W, C), (3, 3, C, Co), (Co,))
@@ -157,6 +160,25 @@ def test_fused_plain_matches_pallas(_interpret_pallas, prologue, residual,
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
                                rtol=1e-4)
     assert out.dtype == torch.float32 and out.shape == (B, H, W, Co)
+
+
+# the fused form at the kernel's edge widths, prologue, residual and a
+# shifted fold: C = 8 into Co = 72 (off the 160-channel tile), and one
+# whole 64-channel chunk into the same Co
+@pytest.mark.parametrize("shape", [(2, 6, 10, 8, 72), (1, 9, 13, 64, 72)])
+def test_fused_plain_matches_pallas_edge_widths(_interpret_pallas, shape):
+    B, H, W, C, Co = shape
+    x, w, b, a, s, r = _rng_arrays(6, (B, H, W, C), (3, 3, C, Co), (Co,),
+                                   (B, C), (B, C), (B, H, W, Co))
+    w *= 0.1
+    a = 1.0 + 0.2 * a
+    s = 4.0 + 0.5 * s
+    ref = jc2.conv3x3_fused(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                            scale=jnp.asarray(a), shift=jnp.asarray(s),
+                            residual=jnp.asarray(r))
+    out = tc2.conv3x3_fused(*map(torch.from_numpy, (x, w, b, a, s, r)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-4)
 
 
 # -- nine-dot and the library conv ---------------------------------------------

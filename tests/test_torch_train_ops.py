@@ -76,6 +76,8 @@ def _close(got, want, rel):
     (1, 128, 384, 2, 64, True),     # causal, N < M (suffix alignment)
     (1, 200, 300, 3, 64, False),    # ragged N and M (the kv edge masked)
     (1, 128, 256, 2, 128, True),    # D = 128, the widest the backward takes
+    (1, 160, 192, 2, 80, False),    # D = 80: a supported head width
+    (1, 150, 200, 2, 72, False),    # D = 72 (D % 16 == 8), ragged M
 ])
 def test_flash_backward_matches_pallas(b, n, m, h, d, causal):
     arrs = _arrays(0, (b, n, h, d), (b, m, h, d), (b, m, h, d))
@@ -85,6 +87,47 @@ def test_flash_backward_matches_pallas(b, n, m, h, d, causal):
     want = _jax_grads(
         lambda q, k, v: jfa.flash_attention(q, k, v, causal=causal), arrs, g)
     _close(got, want, 1e-5)
+
+
+def _jax_bwd(q, k, v, o, lse, do, causal):
+    """The Pallas backward kernels (`_bwd`, interpreter mode) on the given
+    forward residuals: one q block and one kv block, padded to 128 rows as
+    the JAX wrapper pads them."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    n_p, m_p = jfa._ceil_to(n, jfa.LANES), jfa._ceil_to(m, jfa.LANES)
+
+    def heads(a, rows):
+        a = jnp.swapaxes(jnp.asarray(a), 1, 2)
+        return jnp.pad(a, ((0, 0), (0, 0), (0, rows - a.shape[2]), (0, 0)))
+    lse = jnp.pad(jnp.asarray(lse), ((0, 0), (0, 0), (0, n_p - n)))
+    res = (heads(q, n_p), heads(k, m_p), heads(v, m_p), heads(o, n_p),
+           jnp.broadcast_to(lse[..., None], (b, h, n_p, jfa.LANES)))
+    grads = jfa._bwd(d ** -0.5, causal, m, m - n if causal else 0, n_p, m_p,
+                     res, (heads(do, n_p), None))
+    return [np.asarray(jnp.swapaxes(x, 1, 2))[:, :rows]
+            for x, rows in zip(grads, (n, m, m))]
+
+
+# Causal N > M: the first N - M rows see no key. There the two forwards
+# differ by design: the Pallas forward spreads such a row over its padded
+# key length (M rounded up to its block), the JAX package's XLA attention
+# (`mha_xla`) and the port over the M keys. So the backward is held on the
+# same residuals, the port's o and LSE; its LSE of such a row is
+# kMaskValue, as the Pallas forward's is after rounding.
+@pytest.mark.parametrize("b,n,m,h,d", [
+    (1, 200, 136, 2, 64),
+    (1, 150, 100, 2, 80),
+])
+def test_flash_backward_no_visible_key_matches_pallas(b, n, m, h, d):
+    q, k, v, do = _arrays(6, (b, n, h, d), (b, m, h, d), (b, m, h, d),
+                          (b, n, h, d))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, causal=True)
+    assert bool((lse[:, :, :n - m] == tfa.NEG_INF).all())
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, causal=True)
+    want = _jax_bwd(q, k, v, o.numpy(), lse.numpy(), do, True)
+    _close([x.numpy() for x in got], want, 1e-5)
 
 
 @pytest.mark.parametrize("b,n,m,h,d,causal", [
