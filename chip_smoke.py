@@ -270,6 +270,18 @@ def check_kernels(device, gen) -> dict:
     return summary
 
 
+def _attention_qkv(rnd, B, N, M, H, D, layout=None):
+    """q (B, N, H, D), k and v (B, M, H, D) from rnd(*shape): contiguous;
+    "packed": head-dim-contiguous views of one (B, N, 3, H, D) projection;
+    "offset": q a view 4 elements into rows of D + 8, so that its base is
+    8 bytes off 16-byte alignment (bf16 then takes the scalar kernel)."""
+    if layout == "packed":
+        return rnd(B, N, 3, H, D).unbind(2)
+    q = (rnd(B, N, H, D + 8)[..., 4:4 + D] if layout == "offset"
+         else rnd(B, N, H, D))
+    return q, rnd(B, M, H, D), rnd(B, M, H, D)
+
+
 def _check_attention(summary: dict, name: str, kern, plain, cases,
                      flash: bool, device, gen) -> None:
     """Hold an attention kernel on (B, N, H, D) operands to the bound rule
@@ -278,10 +290,11 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
     for case in cases:
         B, N, M, H, D, dt = case[:6]
         causal = case[6] if flash else False
+        layout = case[6] if not flash and len(case) > 6 else None
         kw = {"causal": causal} if flash else {}
-        q = torch.randn(B, N, H, D, generator=gen, device=device).to(dt)
-        k = torch.randn(B, M, H, D, generator=gen, device=device).to(dt)
-        v = torch.randn(B, M, H, D, generator=gen, device=device).to(dt)
+        q, k, v = _attention_qkv(
+            lambda *s: torch.randn(*s, generator=gen, device=device).to(dt),
+            B, N, M, H, D, layout)
         out = kern(q, k, v, **kw)
         torch.cuda.synchronize()
         ref32 = plain(q.float(), k.float(), v.float(), **kw)
@@ -309,6 +322,7 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
         _record(summary, name, {
             "shape": [B, N, H, D], "M": M,
             "dtype": str(dt).replace("torch.", ""), **kw,
+            **({"layout": layout} if layout else {}),
             "bound": bound, **extra}, err, ok, times,
             (nbytes, 4 * B * H * pairs * D, dt))
         del q, k, v, out
@@ -369,6 +383,15 @@ def check_small(summary: dict, device, gen) -> None:
         (5120, 16, 16, 8, 80, bf16),   # init_attn, 8 heads of 80
         (320, 16, 16, 16, 80, bf16),
         (5120, 16, 16, 2, 48, bf16),   # head width 48 (phase 4)
+        # the tensor-core kernel's edges: ragged N < M, the k16 tail
+        # (D = 72), q, k, v as strided views of one packed projection;
+        # D = 36 (D % 8 != 0) and a q off 16-byte alignment take the
+        # scalar kernel
+        (100, 7, 16, 3, 48, bf16),
+        (300, 16, 16, 4, 72, bf16),
+        (320, 16, 16, 20, 64, bf16, "packed"),
+        (300, 16, 16, 4, 36, bf16),
+        (320, 16, 16, 20, 64, bf16, "offset"),
     ]
     _check_attention(summary, "small_attn_fwd", small_attention,
                      small_attention_plain, cases, False, device, gen)
@@ -399,7 +422,9 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
         (16, 640, 640, 4, 32, f32, False),
     ]
     # the temporal sites at batch 1 (b*h*w positions, t = 16): 40x64,
-    # 20x32, 10x16, 5x8 and init_attn; a ragged N = M = 7; the narrow
+    # 20x32, 10x16, 5x8 and init_attn; ragged N = M = 7 and N < M, the k16
+    # tail (D = 72), q, k, v as strided views of one packed projection;
+    # D = 36 and a q off 16-byte alignment (the scalar kernel); the narrow
     # model's in fp32
     small_cases = [
         (2560, 16, 16, 5, 64, bf16),
@@ -408,6 +433,11 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
         (40, 16, 16, 20, 64, bf16),
         (2560, 16, 16, 8, 64, bf16),
         (300, 7, 7, 3, 48, bf16),
+        (100, 7, 16, 3, 48, bf16),
+        (300, 16, 16, 4, 72, bf16),
+        (2560, 16, 16, 5, 64, bf16, "packed"),
+        (300, 16, 16, 4, 36, bf16),
+        (2560, 16, 16, 5, 64, bf16, "offset"),
         (2560, 16, 16, 2, 32, f32),
         (2560, 16, 16, 8, 32, f32),
     ]
@@ -469,13 +499,16 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
              (nbytes, 10 * B * H * pairs * D, dt))
         del q, k, v, do, o, lse, args, qs, ks, vs
 
-    for B, N, M, H, D, dt in small_cases:
-        q, k, v = (rnd(B, n, H, D, dt=dt) for n in (N, M, M))
+    for B, N, M, H, D, dt, *layout in small_cases:
+        layout = layout[0] if layout else None
+        q, k, v = _attention_qkv(lambda *s: rnd(*s, dt=dt), B, N, M, H, D,
+                             layout)
         do = rnd(B, N, H, D, dt=dt)
         args = (q, k, v, do)
         hold("small_attn_bwd",
              {"shape": [B, N, H, D], "M": M,
-              "dtype": str(dt).replace("torch.", "")},
+              "dtype": str(dt).replace("torch.", ""),
+              **({"layout": layout} if layout else {})},
              lambda: small_attention_bwd(*args),
              lambda: small_attention_bwd_plain(*args),
              lambda: small_attention_bwd_plain(*[t.float() for t in args]),

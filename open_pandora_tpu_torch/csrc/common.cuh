@@ -3,7 +3,8 @@
 // attention tiles (`attn_stream` on the CUDA cores for fp32 flash and the
 // dual cross-attention kernel; the tensor-core `TcTile` for every bf16 launch
 // of the flash and packed attention kernels), and the cp.async, ldmatrix and
-// mma.sync wrappers of the tensor-core kernels.
+// mma.sync wrappers of the tensor-core kernels; the warp-owned tiles of the
+// small-attention kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -748,6 +749,190 @@ struct WgTile {
     }
   }
 };
+
+// -- warp-owned bf16 tiles of tiny sequences (small_attn_fwd.cu,
+//    small_attn_bwd.cu): one warp holds whole (rows, D) operands of one
+//    (b, h) pair (rows <= 32) in its own shared memory, at a pitch of
+//    warp_tile_ld(KT) elements, KT = ceil(D / 16) k16 steps over D.
+//    Fragments (g = lane / 4, t = lane % 4) as in mma_bf16.
+
+// 16 KT columns and 8 more: the eight rows an ldmatrix reads fall on eight
+// different groups of four banks.
+__host__ __device__ constexpr int warp_tile_ld(int KT) { return 16 * KT + 8; }
+
+// The tensor-core tiles' condition on memory: every pointer and every
+// stride (in bf16 elements) gives 16-byte aligned rows.
+template <int P, int S>
+bool rows_aligned16(const void* const (&p)[P], const long long (&st)[S]) {
+  for (const void* x : p)
+    if (reinterpret_cast<uintptr_t>(x) & 15u) return false;
+  for (long long s : st)
+    if (s % 8 != 0) return false;
+  return true;
+}
+
+// Copy `rows` rows (a multiple of 16) of D bf16 (D % 8 == 0, 16-byte
+// aligned rows) to dst at pitch ld, in 16-byte cp.async pieces, the lanes
+// on consecutive pieces; rows at or past `valid` are zero-filled (source
+// size 0), and so are columns [D, 16 ceil(D / 16)), the k16 tail. The
+// caller commits and waits.
+__device__ __forceinline__ void warp_load_rows16(
+    __nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
+    long long row_stride, int valid, int rows, int D, int lane) {
+  const int pieces = D / 8;
+  for (int idx = lane; idx < rows * pieces; idx += 32) {
+    const int r = idx / pieces;
+    const int c = (idx - r * pieces) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * ld + c, src + (ok ? r * row_stride + c : 0), ok);
+  }
+  if (D % 16 != 0)
+    for (int r = lane; r < rows; r += 32)
+      *reinterpret_cast<uint4*>(dst + r * ld + D) = make_uint4(0, 0, 0, 0);
+}
+
+// Write rows [0, valid) of D bf16 from src (pitch ld) to dst (row stride
+// row_stride elements, 16-byte aligned rows) in 16-byte pieces.
+__device__ __forceinline__ void warp_store_rows16(
+    __nv_bfloat16* dst, long long row_stride, const __nv_bfloat16* src,
+    int ld, int valid, int D, int lane) {
+  const int pieces = D / 8;
+  for (int idx = lane; idx < valid * pieces; idx += 32) {
+    const int r = idx / pieces;
+    const int c = (idx - r * pieces) * 8;
+    *reinterpret_cast<uint4*>(dst + r * row_stride + c) =
+        *reinterpret_cast<const uint4*>(src + r * ld + c);
+  }
+}
+
+// x as two bf16 operand words: hi = bf16(x0, x1) and lo = bf16(x - hi).
+// hi + lo carries about 16 bits of x, so a product run once with each part
+// adds x's rounding to the result only at the 2^-17 level.
+__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo,
+                                           float x0, float x1) {
+  hi = pack_bf16(x0, x1);
+  const float2 h =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  lo = pack_bf16(x0 - h.x, x1 - h.y);
+}
+
+// s = A B^T for 16 rows of A at `a` against MP <= 32 rows of B at `b`, both
+// (rows, D) tiles: s[j] holds keys 8 j.. of rows g and g + 8; key tiles at
+// or past MP stay 0.
+template <int KT>
+__device__ __forceinline__ void warp_scores(float (&s)[4][4],
+                                            const __nv_bfloat16* a,
+                                            const __nv_bfloat16* b, int MP,
+                                            int lane) {
+  constexpr int LD = warp_tile_ld(KT);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (lane & 15) * LD + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      if (jp * 16 >= MP) break;
+      uint32_t bb[4];
+      ldsm_x4(bb, b + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+                      kc * 16 + ((lane >> 3) & 1) * 8);
+      const uint32_t b0[2] = {bb[0], bb[1]};
+      const uint32_t b1[2] = {bb[2], bb[3]};
+      mma_bf16(s[2 * jp], af, b0);
+      mma_bf16(s[2 * jp + 1], af, b1);
+    }
+  }
+}
+
+// The scores of warp_scores into p = softmax(s scale), normalised, in fp32
+// on the fragments: e = 0, 1 is row g and e = 2, 3 row g + 8 (key
+// 8 j + 2 t + (e & 1)); the quad's four lanes share a row, so the row max
+// and sum take two shuffles; exp2 with scale log2 e folded in, one
+// reciprocal per row; a key at or past M weighs exactly 0.
+__device__ __forceinline__ void warp_softmax(float (&s)[4][4], int M,
+                                             float scale_log2, int lane) {
+  const int t = lane & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool in = 8 * j + 2 * t + (e & 1) < M;
+      s[j][e] = in ? s[j][e] * scale_log2 : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex2(s[j][e] - mx[e >> 1]);  // ex2(-inf) = 0
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    sum[hh] = __frcp_rn(sum[hh]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] *= sum[e >> 1];
+}
+
+template <int KT>
+__device__ __forceinline__ void zero_acc(float (&acc)[2 * KT][4]) {
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+// acc (m16 x 16 KT) += A B, A (m16 x k16) given as its hi and lo parts, so
+// each product runs twice; B's 16 rows at `b`, a (k, D) tile read with
+// ldmatrix.trans.
+template <int KT>
+__device__ __forceinline__ void warp_mma_split(float (&acc)[2 * KT][4],
+                                               const uint32_t (&hi)[4],
+                                               const uint32_t (&lo)[4],
+                                               const __nv_bfloat16* b,
+                                               int lane) {
+  constexpr int LD = warp_tile_ld(KT);
+#pragma unroll
+  for (int dp = 0; dp < KT; ++dp) {
+    uint32_t bb[4];
+    ldsm_x4<true>(bb, b + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                          dp * 16 + (lane >> 4) * 8);
+    const uint32_t b0[2] = {bb[0], bb[1]};
+    const uint32_t b1[2] = {bb[2], bb[3]};
+    mma_bf16(acc[2 * dp], hi, b0);
+    mma_bf16(acc[2 * dp], lo, b0);
+    mma_bf16(acc[2 * dp + 1], hi, b1);
+    mma_bf16(acc[2 * dp + 1], lo, b1);
+  }
+}
+
+// The 16 rows of acc as bf16 into a (rows, D) tile at `dst`.
+template <int KT>
+__device__ __forceinline__ void warp_stage(__nv_bfloat16* dst,
+                                           const float (&acc)[2 * KT][4],
+                                           int lane) {
+  constexpr int LD = warp_tile_ld(KT);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) {
+    *reinterpret_cast<uint32_t*>(dst + g * LD + 8 * j + 2 * t) =
+        pack_bf16(acc[j][0], acc[j][1]);
+    *reinterpret_cast<uint32_t*>(dst + (g + 8) * LD + 8 * j + 2 * t) =
+        pack_bf16(acc[j][2], acc[j][3]);
+  }
+}
 
 // Opt into more than 48 KB of dynamic shared memory where a launch needs it.
 template <typename K>

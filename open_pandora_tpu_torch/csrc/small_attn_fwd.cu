@@ -1,28 +1,45 @@
 // Attention over tiny sequences (N, M <= 32) and a huge batch x heads, for
-// Hopper (sm_90a), fp32 and bf16.
+// Hopper (sm_90a), bf16 and fp32.
 //
 // Replaces the Pallas kernel `_fwd_kernel` in
 // open_pandora_tpu/ops/small_attention.py (reached through `_run_fwd` and
 // `small_attention`): the UNet's temporal self-attention at t = 16, run over
 // every spatial position of every frame stack (B = b*h*w up to 5120 rows,
-// 5 to 20 heads). Math in fp32: scores, softmax and the product with v.
+// 5 to 20 heads). Math in fp32 after the load: s = q k^T, p = softmax(s
+// scale), normalised, then o = p v with p in fp32.
 //
 // Layout: q (B, N, H, D), k and v (B, M, H, D), read through their batch,
 // sequence and head strides (the head dim is contiguous); o contiguous
 // (B, N, H, D). The TPU version transposes everything to (N, D, H*B) so the
-// batch fills its 128-lane vregs; here one warp owns one (b, h) pair and
-// reads its rows directly, 32 lanes across the contiguous head dim.
+// batch fills its 128-lane vregs; here one warp owns one (b, h) pair.
 //
-// What bounds it on the card: the arithmetic is tiny (2*N*M*D per pair for
-// each product), so the kernel is bound by reading q, k, v and writing o
-// once from device memory. The design reads each element exactly once
-// (coalesced along D), keeps the (N, M) scores and probabilities in shared
-// memory and registers, and never writes them to device memory; four warps
-// per block keep enough pairs in flight to cover memory latency.
+// What bounds it on the card: reading q, k, v and writing o once. The
+// arithmetic, 4 N M D per pair, is about 1% of the memory time even on the
+// CUDA cores. So the design is about bytes in flight and instructions per
+// byte:
+// - bf16, D % 8 == 0, 16-byte aligned rows (`small_attn_fwd_tc_kernel`,
+//   the main path): the warp copies its q, k and v with 16-byte cp.async
+//   pieces (eight lanes per 128-byte row at D = 64; rows past N or M
+//   zero-filled) into bf16 shared memory at a pitch of 16 ceil(D / 16) + 8
+//   elements, so `ldmatrix` is free of bank conflicts, about 7 KB per warp
+//   at N = M = 16 and D = 64. Per 16 query rows, S = q k^T is mma.sync
+//   m16n8k16 (bf16 in, fp32 accumulate: exact products); the softmax runs
+//   on the accumulator fragments (quad shuffles for the row max and sum,
+//   exp2 with scale log2 e folded in, one reciprocal per row; a key at or
+//   past M weighs exactly 0); p, never rounded as a whole, enters o = p v
+//   straight from those fragments as two bf16 A operands, hi = bf16(p) and
+//   lo = bf16(p - hi), v as B through `ldmatrix.trans`. o is staged as
+//   bf16 in the rows of q it replaces and leaves in 16-byte pieces.
+// - everything else (fp32, the narrow model; bf16 with D % 8 != 0 or rows
+//   off 16-byte alignment) takes `small_attn_fwd_kernel`, chosen by shape in
+//   the launcher: fp32 shared memory at an odd pitch, lane n computes score
+//   row n and its softmax, the lanes run across D for the product with v.
 #include "common.cuh"
 
 namespace pandora {
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kMaxSeq = 32;
@@ -104,6 +121,72 @@ small_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// Bytes of shared memory per warp of the tensor-core kernel: q (NP rows),
+// k and v (MP rows each), NP and MP the lengths rounded up to 16.
+size_t tc_warp_bytes(int N, int M, int D) {
+  const int NP = (N + 15) / 16 * 16, MP = (M + 15) / 16 * 16;
+  return static_cast<size_t>(NP + 2 * MP) * warp_tile_ld((D + 15) / 16) *
+         sizeof(bf16);
+}
+
+// One warp per (b, h) pair, KT = ceil(D / 16); bf16, D % 8 == 0, rows
+// 16-byte aligned.
+template <int KT>
+__global__ void __launch_bounds__(kWarps * 32)
+small_attn_fwd_tc_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         int BH, int H, int N, int M, int D, long long qsb,
+                         long long qsn, long long qsh, long long ksb,
+                         long long ksn, long long ksh, long long vsb,
+                         long long vsn, long long vsh, float scale_log2) {
+  constexpr int LD = warp_tile_ld(KT);
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int NP = (N + 15) & ~15, MP = (M + 15) & ~15;
+  bf16* sQ = reinterpret_cast<bf16*>(tc_smem) + warp * (NP + 2 * MP) * LD;
+  bf16* sK = sQ + NP * LD;
+  bf16* sV = sK + MP * LD;
+
+  const int bh = blockIdx.x * kWarps + warp;
+  if (bh >= BH) return;  // warps only synchronise among their own lanes
+  const int b = bh / H;
+  const int h = bh - b * H;
+  warp_load_rows16(sQ, LD, q + b * qsb + h * qsh, qsn, N, NP, D, lane);
+  warp_load_rows16(sK, LD, k + b * ksb + h * ksh, ksn, M, MP, D, lane);
+  warp_load_rows16(sV, LD, v + b * vsb + h * vsh, vsn, M, MP, D, lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  for (int r0 = 0; r0 < NP; r0 += 16) {
+    float p[4][4];
+    warp_scores<KT>(p, sQ + r0 * LD, sK, MP, lane);
+    warp_softmax(p, M, scale_log2, lane);
+    // o = p v: the p fragments of key tiles 2 kk and 2 kk + 1 are the A
+    // fragment of k16 step kk, split into hi and lo
+    float acc[2 * KT][4];
+    zero_acc<KT>(acc);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      if (kk * 16 >= MP) break;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float* pj = p[2 * kk + (w >> 1)];
+        split_bf16(hi[w], lo[w], pj[2 * (w & 1)], pj[2 * (w & 1) + 1]);
+      }
+      warp_mma_split<KT>(acc, hi, lo, sV + kk * 16 * LD, lane);
+    }
+    __syncwarp();  // o replaces the rows of q this tile has read
+    warp_stage<KT>(sQ + r0 * LD, acc, lane);
+  }
+  __syncwarp();
+  warp_store_rows16(o + (static_cast<long long>(b) * N * H + h) * D,
+                    static_cast<long long>(H) * D, sQ, LD, N, D, lane);
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int N, int M, int H, int D, const long long* st,
@@ -126,11 +209,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int KT>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      int B, int N, int M, int H, int D, const long long* st,
+                      float scale, cudaStream_t stream) {
+  const int BH = B * H;
+  const size_t smem = kWarps * tc_warp_bytes(N, M, D);
+  auto kernel = small_attn_fwd_tc_kernel<KT>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (BH + kWarps - 1) / kWarps;
+  kernel<<<blocks, kWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), BH, H, N, M, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace pandora
 
 // C interface; strides in elements as in pandora_flash_fwd. N, M <= 32 and
-// D <= 128, else cudaErrorInvalidValue.
+// D <= 128, else cudaErrorInvalidValue. bf16 with D % 8 == 0 and 16-byte
+// aligned rows runs the tensor-core kernel, any other shape the scalar one.
 extern "C" int pandora_small_attn_fwd(const void* q, const void* k,
                                       const void* v, void* o, int B, int N,
                                       int M, int H, int D, long long q_sb,
@@ -146,12 +248,32 @@ extern "C" int pandora_small_attn_fwd(const void* q, const void* k,
   const long long st[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                            v_sb, v_sn, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* const ptrs[4] = {q, k, v, o};
   cudaError_t err;
-  if (dtype == kFloat32)
+  if (dtype == kBFloat16 && D % 8 == 0 && rows_aligned16(ptrs, st)) {
+    switch ((D + 15) / 16) {
+#define PANDORA_SMALL_FWD_TC(KT)                                  \
+  case KT:                                                        \
+    err = launch_tc<KT>(q, k, v, o, B, N, M, H, D, st, scale, s); \
+    break;
+      PANDORA_SMALL_FWD_TC(1)
+      PANDORA_SMALL_FWD_TC(2)
+      PANDORA_SMALL_FWD_TC(3)
+      PANDORA_SMALL_FWD_TC(4)
+      PANDORA_SMALL_FWD_TC(5)
+      PANDORA_SMALL_FWD_TC(6)
+      PANDORA_SMALL_FWD_TC(7)
+      PANDORA_SMALL_FWD_TC(8)
+#undef PANDORA_SMALL_FWD_TC
+      default:
+        err = cudaErrorInvalidValue;
+    }
+  } else if (dtype == kFloat32) {
     err = launch<float>(q, k, v, o, B, N, M, H, D, st, scale, s);
-  else if (dtype == kBFloat16)
+  } else if (dtype == kBFloat16) {
     err = launch<__nv_bfloat16>(q, k, v, o, B, N, M, H, D, st, scale, s);
-  else
+  } else {
     err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

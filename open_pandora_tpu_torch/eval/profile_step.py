@@ -68,8 +68,10 @@ KERNEL_CLASSES = (
                    "flash_fwd_wide_kernel")),
     ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
                    "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")),
-    ("small_attn_fwd", ("small_attn_fwd_kernel",)),
-    ("small_attn_bwd", ("small_attn_bwd_kernel",)),
+    ("small_attn_fwd", ("small_attn_fwd_kernel",
+                        "small_attn_fwd_tc_kernel")),
+    ("small_attn_bwd", ("small_attn_bwd_kernel",
+                        "small_attn_bwd_tc_kernel")),
     ("packed_attn_fwd", ("packed_attn_kernel",)),   # both regimes
     ("dual_cross_attn", ("dual_cross_attn_kernel",)),
     ("fused_temporal_attn", ("fused_temporal_kernel",)),

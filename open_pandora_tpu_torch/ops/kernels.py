@@ -164,18 +164,21 @@ def check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
     """What both attention kernels require: q (B, N, H, D) and k, v
     (B, M, H, D) on one CUDA device, one supported dtype, N and M > 0, the
     head dim contiguous."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    # each attribute read once: this runs before every launch, and at the
+    # temporal sites' sizes the host's time per launch exceeds the kernel's
+    dev, dt, qs, ks = q.device, q.dtype, q.shape, k.shape
+    if not (q.is_cuda and k.device == dev and v.device == dev):
         raise ValueError(f"{name}: q, k, v must be on one CUDA device")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if dt not in DTYPE_CODES or k.dtype != dt or v.dtype != dt:
         raise ValueError(f"{name}: unsupported dtypes "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if (q.ndim != 4 or k.ndim != 4 or v.shape != k.shape
-            or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]):
-        raise ValueError(f"{name}: bad shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[1] == 0 or k.shape[1] == 0:
+                         f"{dt}/{k.dtype}/{v.dtype}")
+    if (len(qs) != 4 or len(ks) != 4 or v.shape != ks or ks[0] != qs[0]
+            or ks[2] != qs[2] or ks[3] != qs[3]):
+        raise ValueError(f"{name}: bad shapes {tuple(qs)}, "
+                         f"{tuple(ks)}, {tuple(v.shape)}")
+    if qs[1] == 0 or ks[1] == 0:
         raise ValueError(f"{name}: empty sequence")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim must be contiguous")
 
 
@@ -185,4 +188,8 @@ def check_cuda(err: int, what: str) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on t's card, read without
+    building a `torch.cuda.Stream` (which costs a few microseconds of host
+    time per launch). `_cuda_getCurrentRawStream` is private: checked
+    against torch 2.11.0+cu128, the CUDA build the kernels run under."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -1,7 +1,9 @@
 """Attention for tiny sequences over a huge batch, forward and backward:
 the CUDA kernels (csrc/small_attn_fwd.cu, csrc/small_attn_bwd.cu), their
 plain PyTorch versions, and the autograd Function that picks between them
-by device.
+by device. The C launchers pick the kernel by shape: bf16 with D % 8 == 0
+and 16-byte aligned rows runs the tensor-core kernels, any other shape
+(fp32, odd head widths, unaligned views) the scalar ones.
 
 Counterpart of open_pandora_tpu/ops/small_attention.py (Pallas
 `_fwd_kernel`, and the custom VJP's `_bwd_kernel`). Serves the UNet's
@@ -63,16 +65,21 @@ def small_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _forward(q, k, v, scale):
+    """The forward kernel on a CUDA tensor, its plain version on a CPU
+    tensor."""
+    if q.device.type == "cpu":
+        return small_attention_plain(q, k, v, sm_scale=scale)
+    return _small_cuda(q, k, v, sm_scale=scale)
+
+
 class _SmallAttention(torch.autograd.Function):
     """The forward kernel (or its plain version on a CPU tensor), saving q,
     k and v; the backward kernel (or its plain version)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.device.type == "cpu":
-            o = small_attention_plain(q, k, v, sm_scale=scale)
-        else:
-            o = _small_cuda(q, k, v, sm_scale=scale)
+        o = _forward(q, k, v, scale)
         ctx.save_for_backward(q, k, v)
         ctx.scale = scale
         return o
@@ -90,7 +97,12 @@ def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     differentiable in q, k and v. A CUDA tensor launches the kernels; a CPU
     tensor takes the plain versions."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    return _SmallAttention.apply(q, k, v, float(scale))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _SmallAttention.apply(q, k, v, float(scale))
+    # no gradient wanted (the eval paths): the same forward without the
+    # autograd Function's host cost, about 18 us a call on the card
+    return _forward(q, k, v, float(scale))
 
 
 small_attention.launches = 0
@@ -126,7 +138,9 @@ def _small_cuda(q, k, v, *, sm_scale):
 def _small_bwd_cuda(q, k, v, do, *, sm_scale):
     do = do if do.stride(-1) == 1 else do.contiguous()
     _check(q, k, v)
-    _check(do, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"small_attention_bwd: do {tuple(do.shape)} "
+                         f"{do.dtype} on {do.device} does not match q")
     B, N, H, D = q.shape
     M = k.shape[1]
     dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)

@@ -21,6 +21,7 @@ from open_pandora_tpu_torch.ops.attention import attention, attention_route
 from open_pandora_tpu_torch.ops.attention_xla import mha
 from open_pandora_tpu_torch.ops.flash_attention import (flash_attention,
                                                         flash_attention_plain)
+from open_pandora_tpu_torch.ops import small_attention as tsa
 from open_pandora_tpu_torch.ops.small_attention import (small_attention,
                                                         small_attention_plain)
 
@@ -169,6 +170,81 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         small_attention(q, q, q)
 
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reads as a CUDA one: it reaches the wrappers'
+    checks past the device test."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _card(*shape, dtype=torch.bfloat16):
+    return torch.zeros(*shape, dtype=dtype).as_subclass(_OnCard)
+
+
+_Q = (2, 16, 4, 64)
+
+
+# (k, v, message): what the small-attention launchers refuse before any
+# launch, each check of kernels.check_qkv and the kernel's own limits
+@pytest.mark.parametrize("k,v,match", [
+    (lambda: _card(*_Q, dtype=torch.float16),
+     lambda: _card(*_Q, dtype=torch.float16), "unsupported dtypes"),
+    (lambda: _card(*_Q), lambda: _card(*_Q, dtype=torch.float32),
+     "unsupported dtypes"),
+    (lambda: _card(3, 16, 4, 64), lambda: _card(3, 16, 4, 64),
+     "bad shapes"),
+    (lambda: _card(2, 16, 4, 32), lambda: _card(2, 16, 4, 32),
+     "bad shapes"),
+    (lambda: _card(2, 16, 4, 64), lambda: _card(2, 8, 4, 64), "bad shapes"),
+    (lambda: _card(2, 16, 64), lambda: _card(2, 16, 64), "bad shapes"),
+    (lambda: _card(2, 0, 4, 64), lambda: _card(2, 0, 4, 64),
+     "empty sequence"),
+    (lambda: _card(2, 16, 4, 128)[..., ::2], lambda: _card(*_Q),
+     "head dim must be contiguous"),
+    (lambda: _card(2, 33, 4, 64), lambda: _card(2, 33, 4, 64),
+     "N, M <= 32"),
+])
+def test_small_attention_checks_refuse(k, v, match):
+    with pytest.raises(ValueError, match=match):
+        tsa._check(_card(*_Q), k(), v())
+
+
+def test_small_attention_refuses_wide_heads():
+    with pytest.raises(ValueError, match="D <= 128"):
+        tsa._check(*(_card(2, 16, 2, 136) for _ in range(3)))
+
+
+def test_small_backward_refuses_a_mismatched_do():
+    """The backward launcher holds do to q's shape, dtype and device: the
+    kernel reads N rows of D elements of do, in q's dtype."""
+    q = _card(*_Q)
+    for do in (_card(2, 7, 4, 64), _card(*_Q, dtype=torch.float32)):
+        with pytest.raises(ValueError, match="does not match q"):
+            tsa._small_bwd_cuda(q, q, q, do, sm_scale=0.125)
+
+
+
+def test_small_attention_without_grad_skips_the_function():
+    """Where no gradient is wanted small_attention calls the forward
+    directly, with no autograd node; where one is, the autograd Function
+    gives the same output and the backward's gradients."""
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((3, 16, 2, 32),
+                                                        dtype=np.float32))
+                   for _ in range(4))
+    out = small_attention(q, k, v)
+    assert out.grad_fn is None
+    qg = q.clone().requires_grad_()
+    with torch.no_grad():
+        assert small_attention(qg, k, v).grad_fn is None
+    out_g = small_attention(qg, k, v)
+    assert out_g.grad_fn is not None
+    assert torch.equal(out_g.detach(), out)
+    (dq,) = torch.autograd.grad(out_g, qg, do)
+    assert torch.equal(dq, tsa.small_attention_bwd_plain(q, k, v, do)[0])
 
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "

@@ -16,6 +16,7 @@ import optax
 import pytest
 import torch
 
+import chip_smoke
 import open_pandora_tpu.ops.flash_attention as jfa
 import open_pandora_tpu.ops.small_attention as jsa
 from open_pandora_tpu.core.config import DiffusionConfig as JaxDiffusionConfig
@@ -166,6 +167,65 @@ def test_small_backward_matches_pallas(b, n, m, h, d):
     q, k, v = map(torch.from_numpy, arrs)
     plain = tsa.small_attention_bwd_plain(q, k, v, torch.from_numpy(g))
     _close([x.numpy() for x in plain], got, 0.0)
+
+
+def _bf16(x):
+    """x rounded to bf16, back in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _parts(x, n):
+    """x as the bf16 operands a product takes: hi = bf16(x) and lo =
+    bf16(x - hi) (n = 2), or hi alone (n = 1)."""
+    hi = _bf16(x)
+    return (hi, _bf16(x - hi)) if n == 2 else (hi,)
+
+
+def _tc_emulation(q, k, v, do, scale, n_parts):
+    """The roundings of the bf16 tensor-core small-attention kernels in
+    plain PyTorch: bf16 q, k, v and do (as given); S, dP, the softmax,
+    rowsum(dp p) and ds in fp32; p and ds enter their products as
+    `n_parts` bf16 parts, each product accumulated in fp32. o, dq, dk, dv
+    in fp32, before the rounding of the outputs."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    p = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q, k) * scale, -1)
+    dp = torch.einsum("bnhd,bmhd->bhnm", do, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    o = sum(torch.einsum("bhnm,bmhd->bnhd", x, v) for x in _parts(p, n_parts))
+    dv = sum(torch.einsum("bhnm,bnhd->bmhd", x, do)
+             for x in _parts(p, n_parts))
+    dq = sum(torch.einsum("bhnm,bmhd->bnhd", x, k)
+             for x in _parts(ds, n_parts))
+    dk = sum(torch.einsum("bhnm,bnhd->bmhd", x, q)
+             for x in _parts(ds, n_parts))
+    return o, dq, dk, dv
+
+
+# the main path's head widths (64; 80 and 48 at other widths; 72, whose
+# k16 tail the kernels zero-fill) at t = 16, a small batch
+@pytest.mark.parametrize("d", [64, 80, 48, 72])
+def test_small_attention_split_operands_hold_the_bound(d):
+    """Why the kernels feed p and ds to the tensor cores as bf16 hi + lo:
+    with the split, o, dq, dk and dv (rounded to bf16 as the kernels store
+    them) stay within chip_smoke's bound rule against the fp32 plain
+    versions on the same bf16 inputs; the same products with p and ds
+    rounded once to bf16 come no closer."""
+    b, n, h = 24, 16, 4
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in _arrays(
+        7, (b, n, h, d), (b, n, h, d), (b, n, h, d), (b, n, h, d)))
+    scale = d ** -0.5
+    ref32 = (tsa.small_attention_plain(q.float(), k.float(), v.float()),
+             *tsa.small_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                            do.float()))
+    plain = (tsa.small_attention_plain(q, k, v),
+             *tsa.small_attention_bwd_plain(q, k, v, do))
+    split = _tc_emulation(q, k, v, do, scale, 2)
+    single = _tc_emulation(q, k, v, do, scale, 1)
+    for name, r, pl, x2, x1 in zip(("o", "dq", "dk", "dv"), ref32, plain,
+                                   split, single):
+        err, bound = chip_smoke._kernel_bound(_bf16(x2), pl, r)
+        assert err <= bound, (name, err, bound)
+        assert (x1 - r).abs().max() >= (x2 - r).abs().max(), name
 
 
 def test_device_branch_keeps_gradients(monkeypatch):
