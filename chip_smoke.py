@@ -17,7 +17,12 @@ Phases, each printing its own lines and raising on failure:
               conv (row 11) and the fused conv (row 12, with and without
               its prologue and residual) at every routed conv site of
               both resolutions and an edge-heavy shift; the GEGLU kernel
-              at the UNet's feed-forward widths; kernel, plain and (where one
+              at the UNet's feed-forward widths; the fused temporal kernel
+              and the GroupNorm kernel at every shape a trace of the UNet
+              hands them at either resolution, the fused temporal lines
+              naming the kernel taken, beside its eager PyTorch chain
+              (`eager_ms`), the GroupNorm lines the launch plan's splits;
+              kernel, plain and (where one
               PyTorch call computes the same function) library times from
               CUDA events, beside the bound (the least time for the work);
               the flash kernel's k16 tail (D = 72), causal rows with no
@@ -229,10 +234,11 @@ def _record(summary: dict, name: str, case: dict, err: float, ok: bool,
 
 
 def _check(summary: dict, name: str, case: dict, kern, plain, ref32_fn,
-           work: tuple, library=None) -> None:
+           work: tuple, library=None, timed=None) -> None:
     """Hold kern() to the bound against ref32_fn() (the plain version in
     fp32) with plain() (the plain version in the working dtype) setting
-    the bound; time kern, plain and the library call if there is one."""
+    the bound; time kern, plain, the library call if there is one and any
+    other yardstick in `timed` (name -> call)."""
     out = kern()
     torch.cuda.synchronize()
     ref32 = ref32_fn()
@@ -241,6 +247,8 @@ def _check(summary: dict, name: str, case: dict, kern, plain, ref32_fn,
     times = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain)}
     if library is not None:
         times["library_ms"] = cuda_ms(library)
+    for key, fn in (timed or {}).items():
+        times[key] = cuda_ms(fn)
     ok = bool(np.isfinite(err) and err <= bound)
     _record(summary, name, {**case, "bound": bound}, err, ok, times, work)
 
@@ -714,39 +722,80 @@ def check_refusals(device) -> None:
         raise AssertionError(f"a refused shape launched: {results}")
 
 
+# (shape, heads) of row 4: every site PandoraConfig()'s UNet hands the
+# kernel at 320x512 (level 0, level 1, init_attn), then at 576x1024
+# (tests/test_torch_gn_ft_plans.py holds the list to a meta trace of the
+# UNet); then the edges of the tensor-core route (a ragged last tile at
+# 320 and 640 channels, fewer positions than one tile, a 3-D (B, t, c)
+# stream) and the shapes left on the mma.sync kernel (head widths 32 and
+# 16: the narrow model; t = 8)
+FUSED_TEMPORAL_CASES = [
+    ((2, 16, 2560, 320), 5),
+    ((2, 16, 640, 640), 10),
+    ((2, 16, 2560, 512), 8),
+    ((2, 16, 9216, 320), 5),
+    ((2, 16, 2304, 640), 10),
+    ((2, 16, 9216, 512), 8),
+    ((2, 16, 37, 320), 5),
+    ((2, 16, 37, 640), 10),
+    ((1, 16, 3, 512), 8),
+    ((100, 16, 640), 10),
+    ((2, 16, 2560, 64), 2),
+    ((2, 16, 2560, 256), 8),
+    ((2, 16, 640, 128), 4),
+    ((2, 16, 100, 64), 4),
+    ((2, 8, 100, 320), 5),
+]
+
+
+def fused_temporal_eager(y, wq, wk, wv, wo, bo, ln_w, ln_b, *, heads,
+                         eps=1e-5):
+    """Row 4's function as a chain of PyTorch calls: F.layer_norm, three
+    F.linear, SDPA over t, F.linear with the bias, the residual. A
+    yardstick timed beside the kernel (`eager_ms`); never routed to."""
+    c = y.shape[-1]
+    dh = c // heads
+    xn = F.layer_norm(y, (c,), ln_w, ln_b, eps)
+
+    def split(z):                     # -> (positions, heads, t, dh)
+        if z.ndim == 4:
+            b, t, hw, _ = z.shape
+            return z.view(b, t, hw, heads, dh).permute(0, 2, 3, 1, 4) \
+                .flatten(0, 1)
+        return z.view(*z.shape[:2], heads, dh).transpose(1, 2)
+    q, k, v = (split(F.linear(xn, w)) for w in (wq, wk, wv))
+    o = F.scaled_dot_product_attention(q, k, v)
+    if y.ndim == 4:
+        b, t, hw, _ = y.shape
+        o = o.view(b, hw, heads, t, dh).permute(0, 3, 1, 2, 4)
+    else:
+        o = o.transpose(1, 2)
+    return F.linear(o.reshape(y.shape), wo, bo) + y
+
+
 def check_fused_temporal(summary: dict, device, gen) -> None:
     from open_pandora_tpu_torch.ops.fused_temporal import (
-        fused_temporal_plain, fused_temporal_self_attention)
+        fused_temporal_plain, fused_temporal_self_attention,
+        tensor_core_route)
 
-    # (b, t, hw, c, heads): the level-0 and level-1 temporal transformers
-    # and init_attn at 320x512, the narrow model's sites, then a ragged
-    # position tile (74 positions, not a multiple of 4) and a 3-D stream
-    cases = [
-        ((2, 16, 2560, 320), 5),
-        ((2, 16, 2560, 512), 8),
-        ((2, 16, 640, 640), 10),
-        ((2, 16, 2560, 64), 2),
-        ((2, 16, 2560, 256), 8),
-        ((2, 16, 640, 128), 4),
-        ((2, 16, 37, 320), 5),
-        ((100, 16, 640), 10),
-        ((2, 16, 9216, 320), 5),      # 576x1024, level 0
-        ((2, 16, 9216, 512), 8),      # init_attn
-        ((2, 16, 2304, 640), 10),     # level 1
-    ]
-    for shape, heads in cases:
+    for shape, heads in FUSED_TEMPORAL_CASES:
         y, params = fused_temporal_inputs(shape, gen, device)
         c, t = shape[-1], shape[1]
         rows = y.numel() // c
+        route = ("wgmma" if tensor_core_route(y, params[5], params[6], heads)
+                 else "mma")
         # LN, four c x c projections, the t x t attention of every row
         _check(summary, "fused_temporal_attn",
-               {"shape": list(shape), "heads": heads, "dtype": "bfloat16"},
+               {"shape": list(shape), "heads": heads, "route": route,
+                "dtype": "bfloat16"},
                lambda: fused_temporal_self_attention(y, *params, heads=heads),
                lambda: fused_temporal_plain(y, *params, heads=heads),
                lambda: fused_temporal_plain(
                    y.float(), *[p.float() for p in params], heads=heads),
                ((2 * y.numel() + 4 * c * c + 3 * c) * 2,
-                8 * rows * c * c + 4 * rows * t * c, torch.bfloat16))
+                8 * rows * c * c + 4 * rows * t * c, torch.bfloat16),
+               timed={"eager_ms": lambda: fused_temporal_eager(
+                   y, *params, heads=heads)})
         del y, params
 
 
@@ -766,39 +815,54 @@ def fused_temporal_inputs(shape, gen, device) -> tuple:
     return rnd(*shape), params
 
 
-def check_group_norm(summary: dict, device, gen) -> None:
-    from open_pandora_tpu_torch.ops.fused_norms import fused_group_norm_silu
-    from open_pandora_tpu_torch.ops.norms import group_norm
+def unet_group_norms(hz: int, wz: int) -> list:
+    """(shape, eps, silu) of every GroupNorm site of PandoraConfig()'s UNet
+    at latent size hz x wz (levels hz >> i, wz >> i; tests/
+    test_torch_gn_ft_plans.py holds the list to a meta trace): per level the
+    temporal conv blocks and temporal-transformer norms on (2, 16, h, w,
+    C) slabs and the ResBlocks, decoder concats and spatial-transformer
+    norms on (32, h, w, C); transformer norms at eps 1e-6 without SiLU,
+    the rest at 1e-5 with it."""
+    (a0, b0), (a1, b1), (a2, b2), (a3, b3) = [(hz >> i, wz >> i)
+                                              for i in range(4)]
+    both = [(2, 16, a0, b0, 320), (2, 16, a1, b1, 640), (2, 16, a2, b2, 1280),
+            (2, 16, a3, b3, 1280), (32, a3, b3, 1280), (32, a2, b2, 1280),
+            (32, a1, b1, 640), (32, a0, b0, 320)]
+    silu_only = [(32, a3, b3, 2560), (32, a2, b2, 640), (32, a2, b2, 1920),
+                 (32, a2, b2, 2560), (32, a1, b1, 320), (32, a1, b1, 960),
+                 (32, a1, b1, 1280), (32, a1, b1, 1920), (32, a0, b0, 640),
+                 (32, a0, b0, 960)]
+    return ([(s, 1e-6, False) for s in both]
+            + [(s, 1e-5, True) for s in both + silu_only])
 
-    # (shape, eps, silu): the UNet's GroupNorm sites at 320x512 (ResBlocks
-    # per level, temporal conv blocks, decoder concats, transformer
-    # pre-norms), the VAE's, then a ragged slab. Four slabs exceed the JAX
-    # resident kernel's 3 * 2**19 elements per sample.
-    cases = [
-        ((32, 40, 64, 320), 1e-5, True),        # ResBlock, level 0
-        ((32, 20, 32, 640), 1e-5, True),
-        ((32, 10, 16, 1280), 1e-5, True),
-        ((32, 5, 8, 1280), 1e-5, True),
-        ((2, 16, 40, 64, 320), 1e-5, True),     # temporal conv, 13.1M / sample
-        ((2, 16, 20, 32, 640), 1e-5, True),
-        ((32, 40, 64, 640), 1e-5, True),        # decoder concat, level 0
-        ((32, 40, 64, 960), 1e-5, True),
-        ((32, 10, 16, 2560), 1e-5, True),       # decoder concat, level 2
-        ((32, 5, 8, 2560), 1e-5, True),         # decoder concat, level 3
-        ((32, 40, 64, 320), 1e-6, False),       # spatial transformer norm
-        ((2, 16, 40, 64, 320), 1e-6, False),    # temporal transformer norm
+
+def group_norm_cases() -> list:
+    """(shape, eps, silu) of phase 3's row-5 cases: the UNet's sites at
+    320x512 and 576x1024, the VAE's, then the edges of the launch plan: a
+    single sample, a ragged slab with 3 channels a group, a ragged last
+    block of either pass, and fewer rows than pass-1 blocks a sample."""
+    edges = [((32, 1027, 320), 1e-5, True), ((32, 3, 320), 1e-5, True)]
+    # the headline case first: it is the kernels line's record
+    first = ((32, 40, 64, 320), 1e-5, True)
+    unet = [cs for cs in unet_group_norms(40, 64) if cs != first]
+    return ([first] + unet + unet_group_norms(72, 128) + [
         ((8, 320, 512, 128), 1e-6, True),       # VAE decode, 21M / sample
         ((8, 320, 512, 256), 1e-6, True),
         ((8, 40, 64, 512), 1e-6, False),        # VAE mid attention norm
         ((1, 320, 512, 128), 1e-6, True),       # VAE encode
-        ((3, 1000, 96), 1e-5, True),            # ragged splits, 3 ch/group
-        ((32, 72, 128, 320), 1e-5, True),       # 576x1024: ResBlock, level 0
-        ((32, 72, 128, 960), 1e-5, True),       # decoder concat, level 0
-        ((2, 16, 72, 128, 320), 1e-5, True),    # temporal conv, 47M / sample
-        ((2, 576, 1024, 128), 1e-6, True),      # VAE decode chunk, 75M / sample
-        ((1, 576, 1024, 128), 1e-6, True),      # VAE encode
-    ]
-    for shape, eps, silu in cases:
+        ((2, 576, 1024, 128), 1e-6, True),      # 576x1024 decode chunk
+        ((1, 576, 1024, 128), 1e-6, True),      # 576x1024 encode
+        ((1, 40, 64, 320), 1e-5, True),         # N = 1
+        ((3, 1000, 96), 1e-5, True),            # ragged, 3 channels a group
+    ] + edges)
+
+
+def check_group_norm(summary: dict, device, gen) -> None:
+    from open_pandora_tpu_torch.ops.fused_norms import (
+        fused_group_norm_silu, launch_plan)
+    from open_pandora_tpu_torch.ops.norms import group_norm
+
+    for shape, eps, silu in group_norm_cases():
         c = shape[-1]
         x = (torch.randn(*shape, generator=gen, device=device) * 3.0
              + 0.5).to(torch.bfloat16)
@@ -807,12 +871,14 @@ def check_group_norm(summary: dict, device, gen) -> None:
         b = (0.05 * torch.randn(c, generator=gen, device=device)
              ).to(torch.bfloat16)
         kw = dict(num_groups=32, eps=eps, silu=silu)
+        plan = launch_plan(shape[0], x.numel() // (shape[0] * c), c)
         # without SiLU one PyTorch call computes the same function: the
         # library yardstick, on the channel-first view
         xt = x.movedim(-1, 1)
         # statistics, normalise, scale, shift, SiLU: about 8 per element
         _check(summary, "group_norm_silu",
                {"shape": list(shape), "eps": eps, "silu": silu,
+                "splits": plan.splits, "chunks": plan.chunks,
                 "dtype": "bfloat16"},
                lambda: fused_group_norm_silu(x, w, b, **kw),
                lambda: group_norm(x, w, b, **kw),

@@ -74,7 +74,8 @@ KERNEL_CLASSES = (
                         "small_attn_bwd_tc_kernel")),
     ("packed_attn_fwd", ("packed_attn_kernel",)),   # both regimes
     ("dual_cross_attn", ("dual_cross_attn_kernel",)),
-    ("fused_temporal_attn", ("fused_temporal_kernel",)),
+    ("fused_temporal_attn", ("fused_temporal_kernel",
+                             "fused_temporal_tc_kernel")),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
     ("conv3x3", ("conv3x3_wg_kernel", "conv3x3_f32_kernel")),  # both rows
     ("fused_geglu", ("fused_geglu_bf16_kernel", "fused_geglu_f32_kernel")),

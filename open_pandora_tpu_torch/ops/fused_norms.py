@@ -10,16 +10,50 @@ function.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from open_pandora_tpu_torch.core import flags
 from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.norms import group_norm
 
-# blocks per pass the split plan aims at: four per SM of an H100 (132 SMs)
-_TARGET_BLOCKS = 4 * 132
-_MAX_SPLITS = 256
-_MIN_ROWS_PER_SPLIT = 16
+SMS = 132                  # streaming multiprocessors of an H100
+_STATS_BLOCKS = SMS        # pass 1: one wave of long-running blocks
+_APPLY_BLOCKS = 8 * SMS    # pass 2: short blocks, many in flight
+
+
+class LaunchPlan(NamedTuple):
+    """How csrc/group_norm_silu.cu runs one slab: pass 1 on grid
+    (splits, N), `per` rows a block; pass 2 on grid (splits N, chunks),
+    each pass-1 block's rows in chunks of `chunk_rows`; `threads` per block
+    of either pass."""
+    per: int
+    threads: int
+    splits: int
+    chunk_rows: int
+    chunks: int
+
+
+def _split(n: int, rows: int, blocks: int) -> tuple:
+    """(rows a block, blocks a sample) for about `blocks` blocks in all,
+    at least `blocks` where there are that many rows."""
+    per = max(1, rows // -(-blocks // n))
+    return per, -(-rows // per)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(n: int, rows: int, c: int) -> LaunchPlan:
+    """One thread per 8-channel column, as many rows of them as 384
+    threads hold (at least one), rounded up to whole warps: the kernels'
+    two blocks a multiprocessor where c <= 3072, 1024 threads at c = 8192.
+    Pass 1 fills one wave of the card's multiprocessors, pass 2 eight."""
+    vc = c // 8
+    threads = -(-(vc * max(1, 384 // vc)) // 32) * 32
+    per, splits = _split(n, rows, _STATS_BLOCKS)
+    chunk_rows, chunks = _split(n * splits, per, _APPLY_BLOCKS)
+    return LaunchPlan(per, threads, splits, chunk_rows, chunks)
 
 
 def fused_group_norm_silu(x: torch.Tensor, weight: torch.Tensor,
@@ -57,15 +91,6 @@ def fused_group_norm_silu(x: torch.Tensor, weight: torch.Tensor,
 fused_group_norm_silu.launches = 0
 
 
-def _split_plan(n: int, rows: int) -> tuple:
-    """(S, rows_per_split): each sample's rows cut into S splits so that
-    the (S, n) grid of either pass fills the card."""
-    s = -(-_TARGET_BLOCKS // n)
-    s = max(1, min(s, _MAX_SPLITS, rows // _MIN_ROWS_PER_SPLIT))
-    per = -(-rows // s)
-    return -(-rows // per), per
-
-
 def check_shapes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  num_groups: int) -> None:
     """What the kernel takes, device aside: bf16 x (N, ..., C) contiguous
@@ -93,15 +118,18 @@ def _gn_cuda(x, weight, bias, *, num_groups, eps, silu):
     check_shapes(x, weight, bias, num_groups)
     n, c = x.shape[0], x.shape[-1]
     rows = x.numel() // (n * c)
-    splits, per = _split_plan(n, rows)
-    part = torch.empty((n, splits, num_groups, 3), dtype=torch.float32,
-                       device=x.device)
+    plan = launch_plan(n, rows, c)
+    # pass 1's partial moments, the per-channel scale and shift, then the
+    # samples' tickets (zeroed by the launcher on the stream)
+    scratch = torch.empty(n * plan.splits * num_groups * 3 + n * c * 2 + n,
+                          dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = kernels.library().pandora_group_norm_silu(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            part.data_ptr(), out.data_ptr(), n, rows, c, num_groups, splits,
-            per, float(eps), int(silu), kernels.DTYPE_CODES[x.dtype],
+            scratch.data_ptr(), out.data_ptr(), n, rows, c, num_groups,
+            plan.per, plan.threads, plan.splits, plan.chunk_rows,
+            plan.chunks, float(eps), int(silu), kernels.DTYPE_CODES[x.dtype],
             kernels.stream_handle(x))
     kernels.check_cuda(err, "pandora_group_norm_silu")
     fused_group_norm_silu.launches += 1

@@ -41,6 +41,26 @@ def fused_temporal_eligible(t: int, dim: int, inner: int,
                              and dim % 32 == 0)
 
 
+# c = 64 heads of the tensor-core kernel: each consumer warpgroup's
+# out-projection columns (c in 128-row blocks at c <= 320, else c / 2 in
+# 64-row blocks, which need an even head count) split into equal blocks of
+# 128, 160 or 192, and the R x c tiles leave shared memory for two ring slots
+_TC_WIDTHS = (128, 192, 256, 320, 384, 512, 640)
+
+
+def tensor_core_route(y: torch.Tensor, ln_w: torch.Tensor,
+                      ln_b: torch.Tensor, heads: int) -> bool:
+    """Whether a launch runs the wgmma kernel (csrc/fused_temporal_attn.cu
+    `fused_temporal_tc_kernel`, which the C launcher refuses for any other
+    shape): t = 16, head width 64, c in _TC_WIDTHS, and y's rows and the LN
+    affine 16-byte aligned. Every other launch runs the mma.sync kernel."""
+    t, c = y.shape[1], y.shape[-1]
+    return (t == 16 and c == 64 * heads and c in _TC_WIDTHS
+            and y.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in y.stride()[:-1])
+            and ln_w.data_ptr() % 16 == 0 and ln_b.data_ptr() % 16 == 0)
+
+
 def fused_temporal_plain(y: torch.Tensor, wq: torch.Tensor,
                          wk: torch.Tensor, wv: torch.Tensor,
                          wo: torch.Tensor, bo: torch.Tensor,
@@ -141,7 +161,8 @@ def _fused_temporal_cuda(y, wq, wk, wv, wo, bo, ln_w, ln_b, *, heads, eps):
         err = kernels.library().pandora_fused_temporal_attn(
             y.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
-            o.data_ptr(), b, t, hw, c, heads, *ys[:3], *os_[:3],
+            o.data_ptr(), b, t, hw, c, heads,
+            int(tensor_core_route(y, ln_w, ln_b, heads)), *ys[:3], *os_[:3],
             wq.stride(0), wo.stride(0), dh ** -0.5, float(eps),
             kernels.DTYPE_CODES[y.dtype], kernels.stream_handle(y))
     kernels.check_cuda(err, "pandora_fused_temporal_attn")

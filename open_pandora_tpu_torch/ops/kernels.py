@@ -39,12 +39,12 @@ _SIGNATURES = {
     "pandora_small_attn_fwd": [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _I, _P],
     "pandora_small_attn_bwd": [_P] * 7 + [_I] * 5 + [_L] * 12
     + [_F, _I, _P],
-    "pandora_group_norm_silu": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "pandora_group_norm_silu": [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P],
     "pandora_packed_attn_fwd": [_P] * 7 + [_I] * 7 + [_L] * 12
     + [_F, _F, _I, _P],
     "pandora_dual_cross_attn_fwd": [_P] * 7 + [_I] * 6 + [_L] * 15
     + [_F, _F, _I, _P],
-    "pandora_fused_temporal_attn": [_P] * 9 + [_I] * 5 + [_L] * 8
+    "pandora_fused_temporal_attn": [_P] * 9 + [_I] * 6 + [_L] * 8
     + [_F, _F, _I, _P],
     "pandora_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
     "pandora_conv3x3_fused": [_P] * 7 + [_I] * 6 + [_P],

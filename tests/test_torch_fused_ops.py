@@ -138,6 +138,7 @@ def test_dual_packed_plain_matches_pallas(b, n, mt, mi, heads, hd, gate,
     (True, (2, 16, 64, 64), 2, F32),      # native (b, t, hw, c)
     (False, (40, 16, 64), 4, BF16),
     (True, (2, 16, 64, 128), 2, BF16),
+    (True, (2, 16, 32, 320), 5, BF16),    # main-path width: dh 64, 5 heads
 ])
 def test_fused_temporal_plain_matches_pallas(native, shape, heads, dtype):
     rng = np.random.default_rng(3)
