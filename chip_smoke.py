@@ -611,39 +611,58 @@ def check_packed(summary: dict, device, gen) -> None:
         del q, streams, flat, library
 
 
+def dual_cross_eager(q, kt, vt, ki, vi, gate):
+    """Row 8's function as a chain of PyTorch calls: SDPA on the
+    (B, H, N, D) views of each stream, the gated sum. A yardstick timed
+    beside the kernel (`eager_ms`); never routed to."""
+    qs = q.transpose(1, 2)
+    text = F.scaled_dot_product_attention(qs, *_heads_first(kt, vt))
+    image = F.scaled_dot_product_attention(qs, *_heads_first(ki, vi))
+    return (text + gate * image).transpose(1, 2)
+
+
+# (B, N, H, D, (text keys, image keys), gate) of row 8: attn2 at head width
+# 80 (phase 5b: 320 and 640 channels at 320x512), a learnable gate, a ragged
+# N with both streams off the tile, head width 48 (phase 4), and level 0 at
+# 576x1024; then streams too long to stay on chip (512 keys each, the
+# gate's most), and a head width with a k16 tail (40)
+DUAL_CROSS_CASES = [
+    (32, 2560, 4, 80, (77, 16), 1.0),
+    (32, 640, 8, 80, (77, 16), 1.0),
+    (32, 2560, 4, 80, (77, 16), 1.37),
+    (2, 1000, 3, 48, (100, 130), 0.25),
+    (32, 2560, 2, 48, (77, 16), 1.0),
+    (32, 640, 4, 48, (77, 16), 0.6),
+    (32, 9216, 4, 80, (77, 16), 1.0),
+    (2, 600, 2, 128, (512, 512), 0.8),
+    (4, 700, 3, 40, (77, 16), 1.0),
+]
+
+
 def check_dual_cross(summary: dict, device, gen) -> None:
     from open_pandora_tpu_torch.ops.dual_cross_attention import (
-        dual_cross_attention, dual_cross_attention_plain)
+        dual_cross_attention, dual_cross_attention_plain, launch_plan)
 
-    # (B, N, H, D, (text keys, image keys), gate): attn2 at head width 80
-    # (phase 5b: 320 and 640 channels at 320x512), a learnable gate, a
-    # ragged N with both streams off the tile, head width 48 (phase 4), and
-    # level 0 at 576x1024
-    cases = [
-        (32, 2560, 4, 80, (77, 16), 1.0),
-        (32, 640, 8, 80, (77, 16), 1.0),
-        (32, 2560, 4, 80, (77, 16), 1.37),
-        (2, 1000, 3, 48, (100, 130), 0.25),
-        (32, 2560, 2, 48, (77, 16), 1.0),
-        (32, 640, 4, 48, (77, 16), 0.6),
-        (32, 9216, 4, 80, (77, 16), 1.0),
-    ]
-    for B, N, H, D, ms, gate in cases:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for B, N, H, D, ms, gate in DUAL_CROSS_CASES:
         def rnd(rows):
             # views of packed (B, rows, H*D) projections, as the UNet has
             return torch.randn(B, rows, H * D, generator=gen, device=device
                                ).to(torch.bfloat16).view(B, rows, H, D)
         ts = [rnd(N)] + [rnd(m) for m in ms for _ in range(2)]
         g = gate if gate == 1.0 else torch.tensor(gate, device=device)
+        plan = launch_plan(B, N, H, D, *ms, sms)
         _check(summary, "dual_cross",
                {"shape": [B, N, H, D], "M": list(ms), "gate": gate,
-                "dtype": "bfloat16"},
+                "dtype": "bfloat16", "resident": plan.resident,
+                "grid": list(plan.grid)},
                lambda: dual_cross_attention(*ts, g),
                lambda: dual_cross_attention_plain(*ts, g),
                lambda: dual_cross_attention_plain(*[t.float() for t in ts],
                                                   g),
                ((2 * N + 2 * sum(ms)) * B * H * D * 2,
-                4 * B * N * sum(ms) * H * D, torch.bfloat16))
+                4 * B * N * sum(ms) * H * D, torch.bfloat16),
+               timed={"eager_ms": lambda: dual_cross_eager(*ts, g)})
         del ts
 
 
@@ -653,8 +672,9 @@ def check_refusals(device) -> None:
     32 and 64), the packed and dual cross-attention kernels at a head width
     that is no multiple of 8, the conv kernel at a channel count that is no
     multiple of 8 and the GEGLU kernel at a width that is no multiple of
-    32. The packed wrapper must also refuse rows that are 4-byte but not
-    16-byte aligned, a view its gate (shapes only) admits."""
+    32. The packed and dual cross-attention wrappers must also refuse rows
+    that are 4-byte but not 16-byte aligned, a view their gates (shapes
+    only) admit."""
     from open_pandora_tpu_torch.ops.dual_cross_attention import (
         dual_cross_attention, dual_cross_attention_eligible)
     from open_pandora_tpu_torch.ops.fused_temporal import (
@@ -709,6 +729,13 @@ def check_refusals(device) -> None:
         "dual_cross_d44": refused(
             dual_cross_attention_eligible(600, 600, 600, 44),
             lambda: dual_cross_attention(x, x, x, x, x, 1.0)),
+        # the same 4-byte-aligned rows as two heads of 64, the streams 77
+        # and 16 of them
+        "dual_cross_align4": refused(
+            not dual_cross_attention_eligible(600, 77, 16, 64),
+            lambda: dual_cross_attention(
+                xa.view(2, 600, 2, 64), *[xa[:, :m].view(2, m, 2, 64)
+                                          for m in (77, 77, 16, 16)], 1.0)),
         # a channel count that is no multiple of 8, and a GEGLU width
         # that is no multiple of 32
         "conv3x3_c12": refused(conv_c12, lambda: conv3x3_nhwc(
@@ -985,22 +1012,36 @@ def check_conv(summary: dict, device, gen) -> None:
         raise AssertionError(f"the conv gates admit {refusal}")
 
 
+def geglu_eager(x, g, b, w1, b1, w2, b2, eps=1e-5):
+    """Row 13's function as a chain of PyTorch calls in x's dtype:
+    F.layer_norm, F.linear with W1 and b1, v * F.gelu(g), F.linear with W2
+    and b2, the residual. A yardstick timed beside the kernels
+    (`eager_ms`); never routed to."""
+    c = x.shape[-1]
+    v, gate = F.linear(F.layer_norm(x, (c,), g, b, eps), w1.t(),
+                       b1).chunk(2, dim=-1)
+    return F.linear(v * F.gelu(gate), w2.t(), b2) + x
+
+
+# (rows, c, dtype) of row 13: the UNet's feed-forward widths (320, 640,
+# 1280 at the rows of the spatial transformers at 320x512, 294912 at
+# 576x1024 level 0), ragged row counts, a width past the UNet's that the
+# JAX gate admits (1920), and fp32
+GEGLU_CASES = [(81920, 320, torch.bfloat16), (20480, 640, torch.bfloat16),
+               (5120, 1280, torch.bfloat16), (294912, 320, torch.bfloat16),
+               (1000, 320, torch.bfloat16), (77, 1280, torch.bfloat16),
+               (5120, 1920, torch.bfloat16), (4096, 640, torch.float32)]
+
+
 def check_geglu(summary: dict, device, gen) -> None:
-    """Row 13 at the UNet's feed-forward widths (320, 640, 1280 at the
-    rows of the spatial transformers at 320x512, 294912 at 576x1024 level
-    0), a ragged row count and fp32. No single PyTorch call computes it."""
+    """Row 13 at GEGLU_CASES. No single PyTorch call computes it."""
     from open_pandora_tpu_torch.ops.fused_geglu import (fused_geglu_ff,
                                                         geglu_ff_plain)
-
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(81920, 320, bf16), (20480, 640, bf16), (5120, 1280, bf16),
-             (294912, 320, bf16), (1000, 320, bf16), (77, 1280, bf16),
-             (4096, 640, f32)]
 
     def rnd(*shape, dt, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=gen, device=device) * scale
                 + shift).to(dt)
-    for R, c, dt in cases:
+    for R, c, dt in GEGLU_CASES:
         inner = 4 * c
         args = (rnd(R, c, dt=dt, scale=3.0),
                 rnd(c, dt=dt, scale=0.1, shift=1.0), rnd(c, dt=dt, scale=0.05),
@@ -1015,7 +1056,8 @@ def check_geglu(summary: dict, device, gen) -> None:
                lambda: fused_geglu_ff(*args),
                lambda: geglu_ff_plain(*args),
                lambda: geglu_ff_plain(*[t.float() for t in args]),
-               ((2 * R * c + 12 * c * c + 11 * c) * es, 24 * R * c * c, dt))
+               ((2 * R * c + 12 * c * c + 11 * c) * es, 24 * R * c * c, dt),
+               timed={"eager_ms": lambda: geglu_eager(*args)})
         del args
 
 

@@ -1,10 +1,11 @@
 // Shared helpers for the kernels: element conversion for the two supported
 // element types (fp32 and bf16), warp reductions, the online-softmax
-// attention tiles (`attn_stream` on the CUDA cores for fp32 flash and the
-// dual cross-attention kernel; the tensor-core `TcTile` for every bf16 launch
-// of the flash and packed attention kernels), and the cp.async, ldmatrix,
-// mma.sync and wgmma wrappers of the tensor-core kernels; the warp-owned
-// tiles of the small-attention kernels; mbarrier and TMA helpers.
+// attention tiles (`attn_stream` on the CUDA cores for fp32 flash; the
+// tensor-core `WgTile` for every bf16 launch of the flash and packed
+// attention kernels, whose softmax and gated two-stream sum the dual
+// cross-attention kernel shares), and the cp.async, ldmatrix, mma.sync and
+// wgmma wrappers of the tensor-core kernels; the warp-owned tiles of the
+// small-attention kernels; mbarrier and TMA helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,7 +74,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// -- online-softmax attention tiles (flash_fwd.cu, packed_attn_fwd.cu) ------
+// -- online-softmax attention tiles on the CUDA cores (fp32 flash_fwd.cu) -
 //
 // A block of kAttnThreads threads owns kAttnBQ query rows of one (b, h) and
 // walks the key axis in tiles of BK rows. Shared memory holds the q tile
@@ -597,6 +598,170 @@ __device__ __forceinline__ void wgmma_ss_n192(float (&d)[96], uint64_t a,
         "+f"(d[95])
       : "l"(a), "l"(b), "r"(scale_d));
 }
+// d (+)= a (64 x 16, shared, K-major) * b (16 x 16, shared, K-major) for
+// the warpgroup; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a (64 x 16, shared, K-major) * b (16 x 32, shared, K-major) for
+// the warpgroup; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a (64 x 16, shared, K-major) * b (16 x 48, shared, K-major) for
+// the warpgroup; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a (64 x 16, shared, K-major) * b (16 x 80, shared, K-major) for
+// the warpgroup; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a (64 x 16, shared, K-major) * b (16 x 128, shared, MN-major)
+// for the warpgroup; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a (64 x 16, shared, K-major) * b (16 x 256, shared, MN-major)
+// for the warpgroup; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n256_mn(float (&d)[128], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 
 // -- mbarriers and TMA (sm_90) ---------------------------------------------
@@ -622,6 +787,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_u32(bar)),
                "r"(bytes)
+               : "memory");
+}
+
+// One arrival on the barrier (a consumer releasing a ring slot).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
                : "memory");
 }
 
@@ -937,6 +1109,55 @@ struct WgTile {
     }
   }
 };
+
+// The gated sum of the two-stream kernels (packed_attn_fwd.cu,
+// dual_cross_attn_fwd.cu): stream si's unnormalised output acc divided by
+// its fp32 row sums l (a row with no key, l = 0, by 1) into out as
+// o_0 + gate * o_1, all in fp32, on a warp's rows g and g + 8. kRcp
+// multiplies by one correctly rounded reciprocal a row instead of dividing
+// each element (within an ulp of the quotient; an IEEE division per
+// element took half of the dual kernel's time on the card).
+template <int DT, bool kRcp = false>
+__device__ __forceinline__ void wg_gated_sum(float (&out)[DT][4],
+                                             const float (&acc)[DT][4],
+                                             const float (&l)[2], int si,
+                                             float gate) {
+  float rl[2];
+  if constexpr (kRcp)
+    for (int h = 0; h < 2; ++h) rl[h] = __frcp_rn(l[h] == 0.f ? 1.f : l[h]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float div = l[e >> 1] == 0.f ? 1.f : l[e >> 1];
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const float x = kRcp ? acc[j][e] * rl[e >> 1] : acc[j][e] / div;
+      out[j][e] = si == 0 ? x : out[j][e] + gate * x;
+    }
+  }
+}
+
+// A warp's rows of out, cast once to bf16: rows g and g + 8 of its 16 are
+// rows `row` and row + 8 of o (row stride rs elements); rows at or past N
+// and columns at or past D are not written.
+template <int DT>
+__device__ __forceinline__ void wg_store_rows(__nv_bfloat16* o, long long rs,
+                                              const float (&out)[DT][4],
+                                              int row, int N, int D) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r >= N) continue;
+    __nv_bfloat16* orow = o + r * rs;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < D)
+        Elem<__nv_bfloat16>::store2(orow + col, out[j][2 * hh],
+                                    out[j][2 * hh + 1]);
+    }
+  }
+}
 
 // -- warp-owned bf16 tiles of tiny sequences (small_attn_fwd.cu,
 //    small_attn_bwd.cu): one warp holds whole (rows, D) operands of one

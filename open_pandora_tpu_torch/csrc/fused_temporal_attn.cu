@@ -57,10 +57,8 @@
 //     as scalar fp32 code.
 // The residual stream is read twice (LN and the epilogue, the second from
 // L2) and written once.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace pandora {
 namespace {
@@ -839,37 +837,11 @@ fused_temporal_tc_kernel(const __grid_constant__ TcMaps maps,
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no link
-// against libcuda).
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // A (c x c) weight with row stride ws elements, in boxes of 64 columns by
 // box_rows rows, 128-byte swizzled.
 bool encode_weight(CUtensorMap* m, const bf16* w, long long ws, int c,
                    int box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 fn = tensor_map_encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c),
-                              static_cast<cuuint64_t>(c)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ws) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-            const_cast<bf16*>(w), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16_2d(m, w, c, c, ws, 64, box_rows);
 }
 
 size_t tc_smem_bytes(int R, int c, int stages) {

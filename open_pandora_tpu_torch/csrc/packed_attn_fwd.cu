@@ -71,9 +71,7 @@ packed_attn_kernel(const Args a) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int g = (threadIdx.x & 31) >> 2;
   const long long hoff = static_cast<long long>(h) * a.D;
 
   tile.load_q(a.q + b * a.qsb + q0 * a.qsn + hoff, a.qsn,
@@ -89,29 +87,10 @@ packed_attn_kernel(const Args a) {
     const float gate = si == 0 ? 1.f
                        : a.gate_ptr != nullptr ? *a.gate_ptr
                                                : a.gate_value;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float div = l[e >> 1] == 0.f ? 1.f : l[e >> 1];
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const float x = acc[j][e] / div;
-        out[j][e] = si == 0 ? x : out[j][e] + gate * x;
-      }
-    }
+    wg_gated_sum<DT>(out, acc, l, si, gate);
   }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + warp * 16 + g + 8 * hh;
-    if (row >= a.N) continue;
-    bf16* orow = a.o + b * a.osb + row * a.osn + hoff;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int col = 8 * j + 2 * t;
-      if (col < a.D)
-        Elem<bf16>::store2(orow + col, out[j][2 * hh], out[j][2 * hh + 1]);
-    }
-  }
+  wg_store_rows<DT>(a.o + b * a.osb + hoff, a.osn, out, q0 + warp * 16 + g,
+                    a.N, a.D);
 }
 
 template <int DMAX, bool kTwo>

@@ -4,7 +4,7 @@ and of one LLM-conditioned round at 576x1024 goes, on one CUDA card.
 Run from the repository root:
 
     python -m open_pandora_tpu_torch.eval.profile_step [--seed 0] [--calls 2]
-        [--flags ENABLE_PCONV2[,...]]
+        [--flags ENABLE_PCONV2[,...]] [--head-channels 80]
 
 Builds the full-width PandoraConfig() in bf16 with random weights and times
 the three parts of `eval.inference.synthesize` at 320x512x16f:
@@ -40,11 +40,17 @@ profiles only the CFG UNet eval, at 320x512 and then on a 72x128 latent
 (core/flags.py; the part's name and its `flags` key say which), in the
 order default, flagged, flagged, default: an A/B of the opt-in conv routes
 against the library convolution on one card.
+
+With --head-channels N it builds the UNet with heads N wide
+(`num_head_channels`; 80 is chip_smoke.py's phase 5b, whose attn2 takes the
+dual cross-attention kernel) and profiles only the conditioning and the
+320x512 CFG UNet eval.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -73,12 +79,13 @@ KERNEL_CLASSES = (
     ("small_attn_bwd", ("small_attn_bwd_kernel",
                         "small_attn_bwd_tc_kernel")),
     ("packed_attn_fwd", ("packed_attn_kernel",)),   # both regimes
-    ("dual_cross_attn", ("dual_cross_attn_kernel",)),
+    ("dual_cross_attn", ("dual_cross_tc_kernel",)),
     ("fused_temporal_attn", ("fused_temporal_kernel",
                              "fused_temporal_tc_kernel")),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
     ("conv3x3", ("conv3x3_wg_kernel", "conv3x3_f32_kernel")),  # both rows
-    ("fused_geglu", ("fused_geglu_bf16_kernel", "fused_geglu_f32_kernel")),
+    ("fused_geglu", ("geglu_ln_kernel", "geglu_gemm_kernel",
+                     "fused_geglu_f32_kernel")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("softmax", ("softmax",)),
@@ -143,6 +150,9 @@ def main(argv=None) -> int:
     p.add_argument("--flags", default="",
                    help="comma-separated PANDORA_* flags: profile only the "
                    "UNet eval (320x512, 576x1024), without and with them")
+    p.add_argument("--head-channels", type=int, default=None,
+                   help="profile only the 320x512 UNet eval of a UNet with "
+                   "heads this wide")
     args = p.parse_args(argv)
     on = {f if f.startswith("PANDORA_") else "PANDORA_" + f: True
           for f in args.flags.split(",") if f}
@@ -157,6 +167,9 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     cfg = PandoraConfig()
+    if args.head_channels:
+        cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, num_head_channels=args.head_channels))
     model = build_model(cfg, device=dev, dtype=torch.bfloat16,
                         generator=torch.Generator(device=dev)
                         .manual_seed(args.seed))
@@ -190,6 +203,11 @@ def main(argv=None) -> int:
         fs2 = torch.cat([streams["fs"]] * 2)
         def unet_eval():
             return model.apply_model(x2, t2, ctx2, zc2, fs2)
+        if args.head_channels:
+            rec = profile_part("unet_eval", unet_eval, args.calls)
+            rec["num_head_channels"] = args.head_channels
+            print(json.dumps(rec), flush=True)
+            return 0
         if on:
             # the same eval on a 72x128 latent (576x1024), the same context
             z_hi = torch.randn(*z.shape[:2], 576 // 8, 1024 // 8, z.shape[-1],

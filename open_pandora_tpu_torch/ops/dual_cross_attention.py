@@ -1,6 +1,7 @@
 """Dual cross-attention on (B, N, H, D): text and image key/value streams
 for the same queries in one kernel (csrc/dual_cross_attn_fwd.cu), its plain
-version, and the autograd Function that picks between them by device.
+version, its launch plan, and the autograd Function that picks between them
+by device.
 
 Counterpart of open_pandora_tpu/ops/dual_cross_attention.py (Pallas
 `_kernel`, through `_forward` and `dual_cross_attention`):
@@ -16,7 +17,8 @@ right.
 
 from __future__ import annotations
 
-from typing import Union
+import functools
+from typing import NamedTuple, Union
 
 import torch
 
@@ -26,6 +28,13 @@ from open_pandora_tpu_torch.ops import kernels
 LANES = 128
 MIN_Q = 512
 MAX_KV_ROWS = 512    # per stream, padded to 128
+
+# the card's kernel: 64-row q tiles, key tiles of up to 80 keys, two
+# warpgroups a block, one block a multiprocessor; the shared memory a
+# block may take
+TILE = 64
+KEY_TILE = 80
+SMEM_LIMIT = 232448
 
 Gate = Union[float, torch.Tensor]
 
@@ -106,16 +115,64 @@ def dual_cross_attention(q: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
     a float or a scalar tensor. Returns attn_text + gate * attn_img,
     (B, N, H, D); differentiable in the tensors. A CUDA tensor launches the
     kernel; a CPU tensor takes the plain version."""
-    return _DualCrossAttention.apply(q, kt, vt, ki, vi, gate)
+    ts = (q, kt, vt, ki, vi, gate)
+    if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.requires_grad
+                                       for t in ts):
+        return _DualCrossAttention.apply(*ts)
+    # no gradient wanted (the eval paths): the same forward without the
+    # autograd Function's host cost
+    if q.device.type == "cpu":
+        return dual_cross_attention_plain(*ts)
+    return _dual_cuda(*ts)
 
 
 dual_cross_attention.launches = 0
 
 
-def check_shapes(q, kt, vt, ki, vi) -> None:
+class LaunchPlan(NamedTuple):
+    """How the kernel covers one call: DMAX, its head-width instance (64
+    or 128 columns); resident, whether every key tile of both streams stays
+    in shared memory (else each warpgroup streams them through a two-slot
+    ring); smem, the bytes of shared memory a block takes; tiles_per_block,
+    the 64-row q tiles of one (b, h) a block walks (its two warpgroups take
+    alternate ones); grid, (blocks per (b, h), H, B)."""
+    dmax: int
+    resident: bool
+    smem: int
+    tiles_per_block: int
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(b: int, n: int, h: int, d: int, mt: int, mi: int,
+                sms: int) -> LaunchPlan:
+    """The kernel's plan for q (b, n, h, d) against mt text and mi image
+    keys on a card of `sms` multiprocessors (the C launcher computes the
+    same shared memory from the plan). A block's 256 threads take the
+    register file, so one block runs on each multiprocessor, and the q
+    tiles are shared out evenly: each of the 2 sms warpgroups takes about
+    B H ceil(n / 64) / (2 sms) of them, as a run of consecutive tiles of
+    one (b, h), so the keys a block loads serve every tile it walks."""
+    dmax = 64 if d <= 64 else 128
+    key_tiles = -(-mt // KEY_TILE) + -(-mi // KEY_TILE)
+
+    def smem(slots):        # four q stages and the key slots, K and V each
+        return 1024 + (4 * TILE + 2 * slots * KEY_TILE) * 128 * (dmax // 64)
+    resident = smem(key_tiles) <= SMEM_LIMIT
+    ntiles = -(-n // TILE)
+    per_warpgroup = -(-(b * h * ntiles) // (2 * sms))
+    tiles = min(2 * per_warpgroup, ntiles)
+    return LaunchPlan(dmax, resident, smem(key_tiles if resident else 4),
+                      tiles, (-(-ntiles // tiles), h, b))
+
+
+def check_shapes(q, kt, vt, ki, vi) -> list:
     """What the kernel takes, device aside: bf16 q (B, N, H, D) and two
     streams of k, v (B, M_s, H, D), D a multiple of 8 up to 128, the head dim
-    contiguous, rows 4-byte aligned, B and H within a launch grid."""
+    contiguous, rows 16-byte aligned (the kernel copies 16-byte pieces; the
+    UNet's views of its projections always are), B and H within a launch
+    grid. Returns the batch, row and head strides of the five tensors, in
+    the C interface's order."""
     name = "dual_cross_attention"
     ts = (q, kt, vt, ki, vi)
     if any(t.dtype != torch.bfloat16 for t in ts):
@@ -134,17 +191,25 @@ def check_shapes(q, kt, vt, ki, vi) -> None:
                 or k.shape[2:] != (h, d) or k.shape[1] == 0):
             raise ValueError(f"{name}: bad k/v shapes {tuple(k.shape)}, "
                              f"{tuple(v.shape)} for q {tuple(q.shape)}")
+    strides = []
     for t in ts:
-        kernels.check_aligned(name, t, 4)
+        st = t.stride()
+        # bf16: 16 bytes are 8 elements
+        if st[3] != 1 or t.data_ptr() % 16 or st[0] % 8 or st[1] % 8 \
+                or st[2] % 8:
+            raise ValueError(f"{name}: rows must be contiguous and 16-byte "
+                             f"aligned, got strides {st}")
+        strides += st[:3]
+    return strides
 
 
 def _dual_cuda(q, kt, vt, ki, vi, gate):
     ts = (q, kt, vt, ki, vi)
-    if any(t.device != q.device for t in ts) or not q.is_cuda:
-        raise ValueError("dual_cross_attention: every tensor must be on one "
-                         "CUDA device")
-    check_shapes(*ts)
+    kernels.check_cuda_tensors("dual_cross_attention", *ts)
+    strides = check_shapes(*ts)
     b, n, h, d = q.shape
+    plan = launch_plan(b, n, h, d, kt.shape[1], ki.shape[1],
+                       kernels.multiprocessors(q.device))
     gate_t = None
     if torch.is_tensor(gate):
         gate_t = gate.detach().to(device=q.device,
@@ -155,8 +220,7 @@ def _dual_cuda(q, kt, vt, ki, vi, gate):
             q.data_ptr(), kt.data_ptr(), vt.data_ptr(), ki.data_ptr(),
             vi.data_ptr(), None if gate_t is None else gate_t.data_ptr(),
             o.data_ptr(), b, n, kt.shape[1], ki.shape[1], h, d,
-            *q.stride()[:3], *kt.stride()[:3], *vt.stride()[:3],
-            *ki.stride()[:3], *vi.stride()[:3],
+            plan.tiles_per_block, int(plan.resident), *strides,
             1.0 if gate_t is not None else float(gate), d ** -0.5,
             kernels.DTYPE_CODES[q.dtype], kernels.stream_handle(q))
     kernels.check_cuda(err, "pandora_dual_cross_attn_fwd")

@@ -42,13 +42,13 @@ _SIGNATURES = {
     "pandora_group_norm_silu": [_P] * 5 + [_I] * 9 + [_F, _I, _I, _P],
     "pandora_packed_attn_fwd": [_P] * 7 + [_I] * 7 + [_L] * 12
     + [_F, _F, _I, _P],
-    "pandora_dual_cross_attn_fwd": [_P] * 7 + [_I] * 6 + [_L] * 15
+    "pandora_dual_cross_attn_fwd": [_P] * 7 + [_I] * 8 + [_L] * 15
     + [_F, _F, _I, _P],
     "pandora_fused_temporal_attn": [_P] * 9 + [_I] * 6 + [_L] * 8
     + [_F, _F, _I, _P],
     "pandora_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
     "pandora_conv3x3_fused": [_P] * 7 + [_I] * 6 + [_P],
-    "pandora_fused_geglu": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+    "pandora_fused_geglu": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
 }
 
 
@@ -148,6 +148,13 @@ def check_cuda_tensors(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the kernel is forward-only; call it "
                            "under torch.no_grad()")
+
+
+@functools.lru_cache(maxsize=None)
+def multiprocessors(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA card, for the launch plans
+    that size their grids to it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_aligned(name: str, t: torch.Tensor, nbytes: int) -> None:

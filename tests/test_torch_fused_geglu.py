@@ -101,5 +101,6 @@ def test_eligibility_matches_jax_at_the_unet_widths():
     for c in (320, 640, 1280):
         assert tfg.geglu_ff_eligible(c) == fg.geglu_ff_eligible(c) is True
     assert tfg._pick_tiles(320, 1280) == fg._pick_tiles(320, 1280)
-    # the card's kernel: multiples of 32 up to 1280
-    assert not tfg.geglu_ff_eligible(48) and not tfg.geglu_ff_eligible(2560)
+    # the card's kernels: multiples of 32, with no upper width of their own
+    assert not tfg.geglu_ff_eligible(48)
+    assert tfg.geglu_ff_eligible(2560) == fg.geglu_ff_eligible(2560) is True
