@@ -61,6 +61,14 @@ Phases, each printing its own lines and raising on failure:
               rounds of DDIM-4: per round the conditioning's parts, seconds
               per DDIM step, decode, the spliced prompt length; frames,
               peak memory, launch counts against the routing
+  8. train_llm the LLM training stages on that WorldModel at full width,
+              bf16, batch 1, 2 steps each: finetune through the trainer
+              (320x512x16f), then alignment, llm_sft in full and llm_sft
+              with LoRA (r 64, alpha 16) through their step functions on
+              one WorldModel; per stage loss, gradient norm, seconds per
+              step, peak memory, launches against the routing, the
+              connector's prefix-row gradient (alignment, finetune) and
+              which tensors LoRA moved
 The last three lines are the card's name and power limit, the kernels'
 JSON summary and the run's JSON result.
 """
@@ -2078,6 +2086,275 @@ def run_world(device, seed: int) -> dict:
     return total
 
 
+# -- phase 8: the LLM training stages at full width ----------------------------
+
+LLM_STAGE_STEPS = 2
+LLM_TEXT_LEN = 16       # data.webvid.PrefetchLoader's llm_text_len
+LORA_RANK, LORA_ALPHA = 64, 16.0     # ChatUniVi's r and alpha
+
+
+def llm_prompt_len(cfg) -> int:
+    """The round-1 training prompt of alignment and finetune: bos, the
+    image's clustered tokens, the caption bucket's rest, the prefix."""
+    return (LLM_TEXT_LEN + sum(cfg.cluster.spatial_rates)
+            + cfg.connector.image_prefix_length)
+
+
+def llm_attention_sites(cfg, stage: str, batch: int, prompt_len: int
+                        ) -> list:
+    """(q shape, k shape, causal, masked, calls, backward) of each attention
+    call one step of an LLM stage makes outside the UNet and the VAE; the
+    calls whose inputs carry a gradient (`backward`) would launch a
+    backward kernel on the flash or small route. The CLIP tower (1 + 256
+    rows at 224) and the LLaMA prefill (causal; masked in llm_sft, whose
+    pads are masked) in every stage; the Q-Former (77 queries, their
+    cross-attention to the 64 prefix rows) and the OpenCLIP text encoder
+    (77 rows, causal: the caption in alignment, the empty prompt of the CFG
+    dropout in finetune) with the connector; the OpenCLIP ViT-H and the
+    Resampler in finetune."""
+    def shape(n, heads, width):
+        return (batch, n, heads, width // heads)
+    t = cfg.clip_tower
+    tower = shape((t.image_size // t.patch_size) ** 2 + 1, t.heads, t.width)
+    lm = cfg.llama
+    prefill = shape(prompt_len, lm.num_heads, lm.hidden_size)
+    sites = [(tower, tower, False, False, t.layers + 1 + t.select_layer,
+              False),
+             (prefill, prefill, True, stage == "llm_sft", lm.num_layers,
+              True)]
+    if stage in ("alignment", "finetune"):
+        q = cfg.qformer
+        qs = shape(q.num_query_tokens, q.num_heads, q.hidden_size)
+        ks = shape(cfg.connector.image_prefix_length, q.num_heads,
+                   q.hidden_size)
+        c = cfg.clip_text
+        text = shape(c.context_length, c.heads, c.width)
+        sites += [(qs, qs, False, False, q.num_layers, True),
+                  (qs, ks, False, False,
+                   len(range(0, q.num_layers, q.cross_attention_frequency)),
+                   True),
+                  (text, text, True, False, c.layers - c.penultimate,
+                   False)]
+    if stage == "finetune":
+        v, r = cfg.clip_vision, cfg.resampler
+        vit = shape((v.image_size // v.patch_size) ** 2 + 1, v.heads,
+                    v.width)
+        lat = (batch, r.num_queries * r.video_length, r.heads, r.dim_head)
+        kv = (batch, vit[1] + lat[1], r.heads, r.dim_head)
+        sites += [(vit, vit, False, False, v.layers, False),
+                  (lat, kv, False, False, r.depth, False)]
+    return sites
+
+
+def predicted_llm_stage_launches(cfg, stage: str, height: int, width: int,
+                                 batch: int, prompt_len: int) -> dict:
+    """Kernel launches of one step of an LLM stage, from the routing
+    functions: finetune's UNet and VAE launch as the dynamicrafter step
+    does (predicted_train_launches); every attention site of the LLM side
+    goes through ops.attention.attention_route as on a CUDA device."""
+    from open_pandora_tpu_torch.ops.attention import attention_route
+
+    counts = dict.fromkeys(KERNEL_KEYS, 0)
+    if stage == "finetune":
+        counts = predicted_train_launches(
+            cfg, height, width, batch=batch,
+            frames=cfg.train.video_length + 1, bf16=True)
+    for q, k, causal, masked, calls, backward in llm_attention_sites(
+            cfg, stage, batch, prompt_len):
+        route = attention_route(q, k, causal=causal, masked=masked,
+                                on_device=True)
+        if route != "plain":
+            counts[route] += calls
+            if backward:
+                counts[f"{route}_bwd"] += calls
+    return counts
+
+
+def _llm_stage(name: str, state, step_fn, batches, watch=None) -> dict:
+    """Steps one stage on `batches`; its metrics, seconds per step, peak
+    memory and launches, and the gradient norm of `watch` after each
+    step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    recs, watched = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in step_fn(state, batch).items()}
+        torch.cuda.synchronize()
+        recs.append({**m, "sec_per_step": time.perf_counter() - t0})
+        if watch is not None:
+            watched.append(watch.grad.float().norm().item())
+    return {"stage": name, "steps": len(recs),
+            "trainable_parameters": sum(p.numel() for p in
+                                        state.trainable.values()),
+            "loss": [r["loss"] for r in recs],
+            "grad_norm": [r["grad_norm"] for r in recs],
+            "sec_per_step": [r["sec_per_step"] for r in recs],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": read_launches(),
+            **({"image_prefix_grad_norm": watched} if watch is not None
+               else {})}
+
+
+def _check_llm_stage(rep: dict, want: dict) -> None:
+    name = rep["stage"]
+    finite = all(np.isfinite(x) for k in ("loss", "grad_norm")
+                 for x in rep[k])
+    if rep["steps"] != LLM_STAGE_STEPS or not finite:
+        raise AssertionError(f"{name}: bad metrics {rep}")
+    if min(rep["grad_norm"]) <= 0:
+        raise AssertionError(f"{name}: zero gradients {rep['grad_norm']}")
+    # the gradient crossed the frozen LLaMA into the learned prefix rows
+    if "image_prefix_grad_norm" in rep and not max(
+            rep["image_prefix_grad_norm"]) > 0:
+        raise AssertionError(f"{name}: no image_prefix gradient")
+    per_step = {k: LLM_STAGE_STEPS * want[k] for k in KERNEL_KEYS}
+    if rep["launches"] != per_step:
+        raise AssertionError(f"{name}: launches {rep['launches']} != "
+                             f"{per_step}")
+
+
+def run_train_llm(device, seed: int) -> dict:
+    """The LLM training stages on the full-width PandoraConfig()
+    WorldModel in bf16, batch 1, synthetic data: finetune through the
+    trainer (train.trainer.run, 320x512x16f); then one WorldModel, built
+    once, through the stages' step functions: alignment, llm_sft in full
+    and llm_sft with LoRA adapters (grafted onto the same LLaMA)."""
+    import itertools
+    from open_pandora_tpu_torch.core.config import PandoraConfig, TrainConfig
+    from open_pandora_tpu_torch.data.sft import (ConversationDataset,
+                                                 synthetic_conversations)
+    from open_pandora_tpu_torch.data.webvid import (PrefetchLoader,
+                                                    SyntheticVideoDataset)
+    from open_pandora_tpu_torch.models.lora import add_lora_
+    from open_pandora_tpu_torch.pipeline.chat_wm import build_world_model
+    from open_pandora_tpu_torch.pipeline.tokenizers import load_tokenizer
+    from open_pandora_tpu_torch.train import trainer
+    from open_pandora_tpu_torch.train.llm_step import make_llm_sft_step
+    from open_pandora_tpu_torch.train.step import (TrainState,
+                                                   make_alignment_step)
+
+    cfg = PandoraConfig()
+    h, w = cfg.train.height, cfg.train.width
+    plen = llm_prompt_len(cfg)
+    want = {stage: predicted_llm_stage_launches(cfg, stage, h, w, 1, plen)
+            for stage in ("alignment", "finetune", "llm_sft")}
+    log("train_llm", f"predicted launches per step: {json.dumps(want)}")
+    # per step at 320x512, batch 1: finetune's UNet and VAE as phase 6's
+    # step (10 flash-bwd, 34 small-bwd, 68 small, 37 flash, 374 GroupNorm);
+    # the LLM side launches nothing: the 192-row prefill is under the
+    # flash gate (512 rows) and masked in llm_sft, the tower's 257 rows
+    # are under it too, the Q-Former and text encoder are short
+    if ({k: want["finetune"][k] for k in TRAIN_KEYS} != {
+            "flash": 37, "flash_bwd": 10, "small": 68, "small_bwd": 34,
+            "group_norm": 374}
+            or any(want["alignment"].values())
+            or any(want["llm_sft"].values())):
+        raise AssertionError(f"the routing predicts {want}")
+    reports, total = [], dict.fromkeys(KERNEL_KEYS, 0)
+
+    # finetune through the trainer; the hook reads the prefix rows'
+    # gradient at each step
+    prefix_norms, real_stage_step = [], trainer._stage_step
+
+    def stage_step_spy(model, tcfg, stage):
+        model.connector.image_prefix.weight.register_post_accumulate_grad_hook(
+            lambda p: prefix_norms.append(p.grad.float().norm().item()))
+        return real_stage_step(model, tcfg, stage)
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_train_llm_")
+    trainer._stage_step = stage_step_spy
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        state = trainer.run([
+            "--synthetic-data", "--max-steps", str(LLM_STAGE_STEPS),
+            "--logdir", logdir, "--name", "phase8", "--device", "cuda",
+            "--set", "train.stage=finetune", "--set", "train.log_every=1",
+            "--set", f"train.seed={seed}"])
+        torch.cuda.synchronize()
+        with open(os.path.join(logdir, "phase8", "loginfo",
+                               "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    finally:
+        trainer._stage_step = real_stage_step
+        shutil.rmtree(logdir, ignore_errors=True)
+    reports.append({
+        "stage": "finetune", "steps": len(recs),
+        "trainable_parameters": sum(p.numel() for p in
+                                    state.trainable.values()),
+        "loss": [r["loss"] for r in recs],
+        "grad_norm": [r["grad_norm"] for r in recs],
+        "sec_per_step": [r["sec_per_step"] for r in recs],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": read_launches(), "image_prefix_grad_norm": prefix_norms})
+    del state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    wm = build_world_model(cfg, device=device, dtype=torch.bfloat16,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(seed + 11))
+    torch.cuda.synchronize()
+    log("train_llm", f"PandoraConfig() WorldModel bf16 built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tcfg = TrainConfig(seed=seed)
+    clips = PrefetchLoader(
+        SyntheticVideoDataset(video_length=cfg.train.video_length,
+                              resolution=(h, w),
+                              clip_size=cfg.clip_tower.image_size),
+        1, text_len=cfg.clip_text.context_length,
+        llm_tokenizer=load_tokenizer(), llm_text_len=LLM_TEXT_LEN)
+    chats = ConversationDataset(
+        [], load_tokenizer(), clip_size=cfg.clip_tower.image_size,
+        seed=seed, records=synthetic_conversations(8, seed))
+
+    def first(batches):
+        return list(itertools.islice(batches, LLM_STAGE_STEPS))
+
+    def run_stage(name, stage_key, step_fn, batches, watch=None):
+        state = TrainState.create(wm, stage_key, tcfg)
+        rep = _llm_stage(name, state, step_fn, batches, watch)
+        del state
+        for p in wm.parameters():
+            p.grad = None
+        torch.cuda.empty_cache()
+        return rep
+
+    reports.append(run_stage(
+        "alignment", "alignment", make_alignment_step(wm, tcfg),
+        first(clips.epoch(0)), watch=wm.connector.image_prefix.weight))
+    sft_batches = first(chats.batches(1, cfg, bucket=32))
+    reports.append(run_stage("llm_sft", "llm_sft",
+                             make_llm_sft_step(wm, tcfg), sft_batches))
+    # LoRA: adapters on the same LLaMA's projections
+    add_lora_(wm.llama, LORA_RANK, LORA_ALPHA,
+              torch.Generator(device=device).manual_seed(seed + 12))
+    layer = wm.llama.model.layers[0].self_attn.q_proj
+    before = {"frozen": layer.weight.detach().clone(),
+              "adapter": layer.lora_b.detach().clone()}
+    rep = run_stage("llm_sft_lora", "llm_sft_lora",
+                    make_llm_sft_step(wm, tcfg), sft_batches)
+    rep["changed"] = {"frozen q_proj.weight": not torch.equal(
+        layer.weight, before["frozen"]), "adapter q_proj.lora_b":
+        not torch.equal(layer.lora_b, before["adapter"])}
+    reports.append(rep)
+    del wm, layer, before
+    torch.cuda.empty_cache()
+
+    for rep in reports:
+        log("train_llm", json.dumps(rep))
+        _check_llm_stage(rep, want[rep["stage"].replace("_lora", "")])
+        for k in KERNEL_KEYS:
+            total[k] += rep["launches"][k]
+    lora = reports[-1]["changed"]
+    if lora["frozen q_proj.weight"] or not lora["adapter q_proj.lora_b"]:
+        raise AssertionError(f"LoRA SFT changed the wrong tensors: {lora}")
+    if min(total[k] for k in TRAIN_KEYS) <= 0:
+        raise AssertionError("a kernel of the path never launched")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("chip_smoke")
     p.add_argument("--seed", type=int, default=0)
@@ -2126,6 +2403,8 @@ def main(argv=None) -> int:
     paths["wide_heads"] = run_wide_heads(device, args.seed)
     paths["train"] = run_train(device, args.seed)
     paths["world"] = run_world(device, args.seed)
+    torch.cuda.empty_cache()
+    paths["train_llm"] = run_train_llm(device, args.seed)
 
     # launches: the main paths' runs together, and each on its own
     kernels_line = {"kernels": [

@@ -133,15 +133,10 @@ class LLaMAConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     max_position_embeddings: int = 4096
-    # LoRA adapters: 0 = off; a rank above 0 waits for the LLM training slice
+    # LoRA adapters on every linear projection except lm_head
+    # (ChatUniVi train.py:98-103 defaults r=64 alpha=16). 0 = off.
     lora_rank: int = 0
     lora_alpha: float = 16.0
-
-    def __post_init__(self):
-        if self.lora_rank > 0:
-            raise NotImplementedError(
-                f"lora_rank={self.lora_rank}: LoRA adapters wait for the "
-                "LLM training slice (llm_sft)")
 
     @property
     def total_vocab(self) -> int:
@@ -241,7 +236,8 @@ class TrainConfig:
     """Training stages (reference: config/config.yaml, config_align.yaml,
     config_finetune.yaml + model.py:951-972)."""
 
-    stage: str = "finetune"              # "alignment" | "finetune"
+    # "alignment" | "finetune" | "dynamicrafter" | "llm_sft"
+    stage: str = "finetune"
     learning_rate: float = 5e-5
     min_lr: float = 1e-6
     lr_schedule: str = "constant"        # alignment uses cosine (model.py:967)
@@ -266,8 +262,8 @@ class TrainConfig:
     # shipped config)
     use_ema: bool = False
     ema_decay: float = 0.9999
-    # "adamw" (reference model.py:951-965); the JAX package's "adamw8bit"
-    # waits for a later slice
+    # "adamw" (reference model.py:951-965) or "adamw8bit" (blockwise int8
+    # moments, train/optim8bit.py)
     optimizer: str = "adamw"
 
 

@@ -265,9 +265,20 @@ def vae(out: Flat, params: Mapping, cfg, prefix: str) -> None:
 # -- LLM side: LLaMA, CLIP ViT-L tower, Q-Former connector -------------------
 
 
+def _lora_linear(out: Flat, prefix: str, p: Mapping) -> None:
+    """A projection, plain or LoRA (JAX `LoRADense`: `base/kernel`,
+    `lora_a` (in, r), `lora_b` (r, out)); the adapters keep their layout."""
+    if "base" not in p:
+        linear(out, prefix, p)
+        return
+    linear(out, prefix, p["base"])
+    out[f"{prefix}.lora_a"] = _a(p["lora_a"])
+    out[f"{prefix}.lora_b"] = _a(p["lora_b"])
+
+
 def llama(out: Flat, params: Mapping, prefix: str) -> None:
-    """models.llama.LlamaForCausalLM params -> HF keys under `prefix`
-    (the LlamaModel); lm_head sits beside it."""
+    """models.llama.LlamaForCausalLM params, plain or with LoRA adapters
+    -> HF keys under `prefix` (the LlamaModel); lm_head sits beside it."""
     p = params["params"]
     out[f"{prefix}.embed_tokens.weight"] = _a(p["embed_tokens"]["embedding"])
     out[f"{prefix}.norm.weight"] = _a(p["model"]["norm"]["scale"])
@@ -275,9 +286,9 @@ def llama(out: Flat, params: Mapping, prefix: str) -> None:
     while f"layers_{i}" in p["model"]:
         lp, q = f"{prefix}.layers.{i}", p["model"][f"layers_{i}"]
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            linear(out, f"{lp}.self_attn.{name}", q["self_attn"][name])
+            _lora_linear(out, f"{lp}.self_attn.{name}", q["self_attn"][name])
         for name in ("gate_proj", "up_proj", "down_proj"):
-            linear(out, f"{lp}.mlp.{name}", q["mlp"][name])
+            _lora_linear(out, f"{lp}.mlp.{name}", q["mlp"][name])
         for name in ("input_layernorm", "post_attention_layernorm"):
             out[f"{lp}.{name}.weight"] = _a(q[name]["scale"])
         i += 1

@@ -10,12 +10,17 @@ keep unit scale through depth; norm scales (RMSNorm's too) are 1, biases and
 LLM-side families fall under the same rules: embedding tables, position
 embeddings and the connector's prefix rows are matrices (rows of norm about
 1), the Q-Former's query tokens N(0, 1/(77 * 768)) ahead of its LayerNorm.
+LoRA adapters keep their own init (A Kaiming-uniform, B zeros), so a fresh
+adapter adds nothing.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from open_pandora_tpu_torch.models.llama import LoRALinear
+from open_pandora_tpu_torch.models.lora import is_adapter
 
 
 @torch.no_grad()
@@ -24,6 +29,8 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     on the parameters' device."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
+        if is_adapter(name):
+            continue
         if name.endswith("latents"):
             p.normal_(0.0, p.shape[-1] ** -0.5, generator=generator)
         elif p.ndim >= 2:
@@ -32,4 +39,7 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.fill_(1.0)
         else:                    # biases, class embedding, gates
             p.normal_(0.0, 0.02, generator=generator)
+    for m in model.modules():
+        if isinstance(m, LoRALinear):
+            m.reset_adapter(generator)
     return model

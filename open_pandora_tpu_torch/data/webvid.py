@@ -56,16 +56,21 @@ class PrefetchLoader:
     """Batches of `batch_size` samples in a per-epoch order seeded by
     seed + epoch, loaded and collated by a thread pool that keeps up to
     `num_workers` batches in flight; captions are tokenized to the fixed
-    CLIP length."""
+    CLIP length. With an `llm_tokenizer` (the LLM stages) the batch also
+    holds `llm_text_tokens` (b, llm_text_len): bos + caption ids, cut or
+    zero-padded to the fixed length."""
 
     num_workers = 4
     seed = 0
 
-    def __init__(self, dataset, batch_size: int, text_len: int = 77):
+    def __init__(self, dataset, batch_size: int, text_len: int = 77,
+                 llm_tokenizer=None, llm_text_len: int = 16):
         self.ds = dataset
         self.bs = batch_size
         self.text_len = text_len
         self.tokenize = load_clip_tokenizer(context_length=text_len)
+        self.llm_tokenizer = llm_tokenizer
+        self.llm_text_len = llm_text_len
 
     def _epoch_indices(self, epoch: int) -> List[int]:
         return list(np.random.RandomState(self.seed + epoch).permutation(
@@ -73,7 +78,7 @@ class PrefetchLoader:
 
     def _load(self, indices: List[int]) -> Dict[str, np.ndarray]:
         samples = [self.ds[i] for i in indices]
-        return {
+        batch = {
             "video": np.stack([s["video"] for s in samples]),
             "cond_frames": np.stack([s["cond_frames"] for s in samples]),
             "cond_images": np.stack([s["cond_image"] for s in samples]),
@@ -82,6 +87,15 @@ class PrefetchLoader:
                            np.int32) for s in samples]),
             "fps": np.asarray([s["fps"] for s in samples], np.int32),
         }
+        if self.llm_tokenizer is not None:
+            n = self.llm_text_len
+            ids = np.zeros((len(samples), n), np.int32)
+            for i, s in enumerate(samples):
+                enc = self.llm_tokenizer.encode(s["caption"],
+                                                add_bos=True)[:n]
+                ids[i, :len(enc)] = enc
+            batch["llm_text_tokens"] = ids
+        return batch
 
     def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """The epoch's full batches, in order (the remainder is dropped)."""

@@ -30,6 +30,7 @@ from open_pandora_tpu_torch.core.config import (CLIPTextConfig,
                                                 UNet3DConfig, VAEConfig)
 from open_pandora_tpu_torch.core.init import init_random_
 from open_pandora_tpu_torch.models.dynamicrafter import DynamiCrafter
+from open_pandora_tpu_torch.models.lora import add_lora_params, is_adapter
 from open_pandora_tpu_torch.pipeline.preprocess import (diffusion_preprocess,
                                                         to_unit_float)
 from open_pandora_tpu_torch.pipeline.tokenizers import load_clip_tokenizer
@@ -113,11 +114,12 @@ def synthesize(model: DynamiCrafter, image: np.ndarray, prompt: str, *,
     return video.float().cpu().numpy()
 
 
-def load_checkpoint(model: DynamiCrafter, path: str) -> None:
-    """Load a reference DynamiCrafter checkpoint (plain, PL or DeepSpeed
-    state dict). Keys the model does not hold (schedule buffers, unused
-    open_clip parameters) are skipped; a key the model holds but the file
-    lacks is an error."""
+def load_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Load a reference DynamiCrafter checkpoint into a DynamiCrafter, or
+    the released composite into a WorldModel (plain, PL or DeepSpeed state
+    dict). Keys the model does not hold (schedule buffers, unused open_clip
+    parameters) are skipped; a key the model holds but the file lacks is an
+    error, but for LoRA adapters, which keep their fresh init."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     for wrapper in ("state_dict", "module"):
         if isinstance(raw.get(wrapper), dict):
@@ -127,12 +129,12 @@ def load_checkpoint(model: DynamiCrafter, path: str) -> None:
         k = k.removeprefix("_forward_module.").replace("framestride_embed",
                                                        "fps_embedding")
         sd[k] = v
-    wanted = model.state_dict().keys()
-    missing = [k for k in wanted if k not in sd]
+    wanted = model.state_dict()
+    missing = [k for k in wanted if k not in sd and not is_adapter(k)]
     if missing:
         raise KeyError(f"{path}: {len(missing)} keys missing, e.g. "
                        f"{missing[:3]}")
-    model.load_state_dict({k: sd[k] for k in wanted}, strict=True)
+    model.load_state_dict(add_lora_params(sd, wanted), strict=True)
 
 
 def load_prompt_list(prompt_dir: str):

@@ -1,16 +1,19 @@
 """LLaMA-7B trunk, prefill-oriented.
 
-Counterpart of open_pandora_tpu/models/llama.py (without its int8, NF4 and
-LoRA projections, which wait for later slices). HF LLaMA semantics: RMSNorm
-eps 1e-6 (fp32 statistics, the scale after the cast back), rotary
+Counterpart of open_pandora_tpu/models/llama.py (without its int8 and NF4
+projections, which wait for the quantization slice). HF LLaMA semantics:
+RMSNorm eps 1e-6 (fp32 statistics, the scale after the cast back), rotary
 embeddings over the full head width in two contiguous halves, SwiGLU MLP,
 pre-norm residual blocks. The world model calls the bare trunk on spliced
-input embeddings and reads hidden states only; `lm_head` is kept so the
-state dict has HF's keys.
+input embeddings and reads hidden states only; `lm_head` serves the SFT
+loss (train/llm_step.py). With `lora_rank > 0` every projection but
+`lm_head` is a `LoRALinear` (JAX `LoRADense`): the frozen base plus a
+low-rank adapter.
 
 Module and parameter names follow the HF state dict
 (`model.embed_tokens.weight`, `model.layers.0.self_attn.q_proj.weight`,
-`model.norm.weight`, `lm_head.weight`).
+`model.norm.weight`, `lm_head.weight`); an adapter adds `….q_proj.lora_a`
+(in, r) and `….q_proj.lora_b` (r, out), the JAX package's layout.
 
 Token ids: <image> = 32000 (= vocab_size, the splice marker), [IMG_P] =
 32001 (the connector's learned-prefix slots).
@@ -19,6 +22,8 @@ Token ids: <image> = 32000 (= vocab_size, the splice marker), [IMG_P] =
 from __future__ import annotations
 
 from typing import Optional
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -59,15 +64,49 @@ def rotary_embed(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+class LoRALinear(nn.Linear):
+    """A frozen bias-free projection plus a low-rank adapter:
+    y = x Wᵀ + ((x A) B) α/r (PEFT semantics: A Kaiming-uniform on fan_in,
+    B zeros, so the delta starts at 0). AB is never formed. No LoRA
+    dropout, as in the JAX package's deterministic SFT step."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 alpha: float):
+        super().__init__(in_features, out_features, bias=False)
+        self.rank, self.alpha = rank, alpha
+        self.lora_a = nn.Parameter(torch.empty(in_features, rank))
+        self.lora_b = nn.Parameter(torch.empty(rank, out_features))
+        self.reset_adapter()
+
+    @torch.no_grad()
+    def reset_adapter(self, generator: Optional[torch.Generator] = None
+                      ) -> None:
+        """flax he_uniform over (in, r): U(+-sqrt(6 / in)); B = 0."""
+        bound = math.sqrt(6.0 / self.in_features)
+        self.lora_a.uniform_(-bound, bound, generator=generator)
+        self.lora_b.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        delta = (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
+        return super().forward(x) + delta * (self.alpha / self.rank)
+
+
+def _proj(cfg: LLaMAConfig, d_in: int, d_out: int) -> nn.Linear:
+    """JAX `_proj`: a LoRALinear when cfg.lora_rank > 0, else plain."""
+    if cfg.lora_rank:
+        return LoRALinear(d_in, d_out, cfg.lora_rank, cfg.lora_alpha)
+    return nn.Linear(d_in, d_out, bias=False)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LLaMAConfig):
         super().__init__()
         self.heads, self.theta = cfg.num_heads, cfg.rope_theta
         d = cfg.hidden_size
-        self.q_proj = nn.Linear(d, d, bias=False)
-        self.k_proj = nn.Linear(d, d, bias=False)
-        self.v_proj = nn.Linear(d, d, bias=False)
-        self.o_proj = nn.Linear(d, d, bias=False)
+        self.q_proj = _proj(cfg, d, d)
+        self.k_proj = _proj(cfg, d, d)
+        self.v_proj = _proj(cfg, d, d)
+        self.o_proj = _proj(cfg, d, d)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -84,9 +123,9 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LLaMAConfig):
         super().__init__()
         d, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = nn.Linear(d, m, bias=False)
-        self.up_proj = nn.Linear(d, m, bias=False)
-        self.down_proj = nn.Linear(m, d, bias=False)
+        self.gate_proj = _proj(cfg, d, m)
+        self.up_proj = _proj(cfg, d, m)
+        self.down_proj = _proj(cfg, m, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))

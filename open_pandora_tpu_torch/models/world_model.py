@@ -78,6 +78,20 @@ class PrefixSegment:
 Segment = Union[TokenSegment, ImageSegment, VideoSegment, PrefixSegment]
 
 
+def segment_length(cfg: PandoraConfig, seg: Segment) -> Optional[int]:
+    """Spliced length of a segment (None for a TokenSegment, whose ids
+    carry it)."""
+    per_image = sum(cfg.cluster.spatial_rates)
+    if isinstance(seg, ImageSegment):
+        return per_image
+    if isinstance(seg, VideoSegment):
+        return per_image * max(math.ceil(
+            len(seg.indices) * cfg.cluster.temporal_rate), 1)
+    if isinstance(seg, PrefixSegment):
+        return seg.length
+    return None
+
+
 @dataclass
 class MultimodalPrompt:
     """Ordered segments and the CLIP image stack (b, n_images, 224, 224, 3),
@@ -213,18 +227,7 @@ class WorldModel(nn.Module):
         return out, prefix_spans
 
     def segment_length(self, seg: Segment) -> Optional[int]:
-        """Spliced length of a segment (None for a TokenSegment, whose ids
-        carry it)."""
-        cfg = self.cfg
-        per_image = sum(cfg.cluster.spatial_rates)
-        if isinstance(seg, ImageSegment):
-            return per_image
-        if isinstance(seg, VideoSegment):
-            return per_image * max(math.ceil(
-                len(seg.indices) * cfg.cluster.temporal_rate), 1)
-        if isinstance(seg, PrefixSegment):
-            return seg.length
-        return None
+        return segment_length(self.cfg, seg)
 
     def attention_mask_for(self, prompt: MultimodalPrompt
                            ) -> Optional[torch.Tensor]:

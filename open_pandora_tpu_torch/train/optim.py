@@ -1,10 +1,10 @@
 """Optimizer and freeze policy.
 
 Counterpart of open_pandora_tpu/train/optim.py (reference model.py:951-972
-configure_optimizers, config/config.yaml:32-33): AdamW after a clip of the
-gradients' global norm, with a constant or cosine learning rate. The
-frozen sub-models get requires_grad False and run under torch.no_grad(),
-so no gradient is ever computed for them.
+configure_optimizers, config/config.yaml:32-33): AdamW (or the 8-bit
+AdamW of train/optim8bit.py) after a clip of the gradients' global norm,
+with a constant or cosine learning rate. The frozen parameters get
+requires_grad False, so no gradient is ever computed for them.
 """
 
 from __future__ import annotations
@@ -16,12 +16,28 @@ import torch
 from torch import nn
 
 from open_pandora_tpu_torch.core.config import TrainConfig
+from open_pandora_tpu_torch.models.lora import is_adapter
+from open_pandora_tpu_torch.train.optim8bit import AdamW8bit
 
-# the modules that train, per stage, by their prefix in the reference state
-# dict (the JAX package's top-level params keys: "dynamicrafter" trains
-# ("unet",)); the LLM stages wait for slice B
+_UNET = "diffusion_model.model.diffusion_model"
+_LLAMA = ("video_model.model.embed_tokens", "video_model.model.layers",
+          "video_model.model.norm", "video_model.lm_head")
+_MM_PROJECTOR = "video_model.model.mm_projector"
+
+# the modules that train, per stage, by module path: "dynamicrafter" in a
+# DynamiCrafter, the others in a WorldModel (the JAX package's top-level
+# params keys: dynamicrafter ("unet",), finetune ("unet", "connector"),
+# alignment ("connector",), llm_sft ("llama", "mm_projector")). The
+# WorldModel holds the CLIP tower and mm_projector inside
+# `video_model.model`, so "llama" is named by its own parts and the tower
+# stays frozen, as in JAX. LoRA SFT trains mm_projector and every adapter
+# (JAX _lora_pred; ChatUniVi train.py:121-146).
 TRAINABLE_KEYS = {
     "dynamicrafter": ("model.diffusion_model",),
+    "finetune": (_UNET, "connector"),
+    "alignment": ("connector",),
+    "llm_sft": _LLAMA + (_MM_PROJECTOR,),
+    "llm_sft_lora": (_MM_PROJECTOR,),
 }
 
 Params = Dict[str, torch.Tensor]
@@ -30,15 +46,17 @@ Params = Dict[str, torch.Tensor]
 def trainable_partition(model: nn.Module, stage: str) -> Tuple[Params,
                                                                   Params]:
     """Split the named parameters into (trainable, frozen) by stage, set
-    requires_grad to match, and put the trainable modules in training mode
-    and every other module in eval mode."""
-    prefixes = TRAINABLE_KEYS[stage]
+    requires_grad to match, and put the modules that train in training
+    mode and every other module in eval mode."""
+    modules = TRAINABLE_KEYS[stage]
     model.eval()
-    for prefix in prefixes:
+    for prefix in modules:
         model.get_submodule(prefix).train()
+    prefixes = tuple(f"{x}." for x in modules)
     trainable, frozen = {}, {}
     for name, p in model.named_parameters():
-        train = name.startswith(tuple(f"{x}." for x in prefixes))
+        train = name.startswith(prefixes) or (stage == "llm_sft_lora"
+                                              and is_adapter(name))
         p.requires_grad_(train)
         (trainable if train else frozen)[name] = p
     return trainable, frozen
@@ -66,21 +84,26 @@ def global_norm(tensors) -> torch.Tensor:
 
 class Optimizer:
     """optax.chain(clip_by_global_norm(grad_clip_norm), adamw(...)) over
-    `params`: step() clips the gradients (in place), applies AdamW at the
-    scheduled rate and returns the norm before clipping. The moments take
-    the parameters' dtype, as optax's do."""
+    `params`: step() clips the gradients (in place), applies AdamW (or the
+    8-bit AdamW) at the scheduled rate and returns the norm before
+    clipping. AdamW's moments take the parameters' dtype, as optax's do."""
 
     def __init__(self, params: Params, cfg: TrainConfig):
-        if cfg.optimizer != "adamw":
-            raise NotImplementedError(
-                f"optimizer {cfg.optimizer!r}: only adamw is ported")
         self.cfg = cfg
         self.params = list(params.values())
         self.count = 0
-        self.adamw = torch.optim.AdamW(
-            self.params, lr=cfg.learning_rate,
-            betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
-            weight_decay=cfg.weight_decay)
+        if cfg.optimizer == "adamw8bit":
+            self.adamw = AdamW8bit(
+                self.params, b1=cfg.adam_b1, b2=cfg.adam_b2,
+                eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+        elif cfg.optimizer == "adamw":
+            self.adamw = torch.optim.AdamW(
+                self.params, lr=cfg.learning_rate,
+                betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
+                weight_decay=cfg.weight_decay)
+        else:
+            raise ValueError(f"unknown optimizer {cfg.optimizer!r}; "
+                             "choose adamw or adamw8bit")
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -97,8 +120,12 @@ class Optimizer:
         max_norm = self.cfg.grad_clip_norm
         torch._foreach_mul_(grads, torch.where(
             norm >= max_norm, max_norm / norm, torch.ones_like(norm)))
-        for group in self.adamw.param_groups:
-            group["lr"] = lr_at(self.cfg, self.count)
-        self.adamw.step()
+        lr = lr_at(self.cfg, self.count)
+        if isinstance(self.adamw, AdamW8bit):
+            self.adamw.step(lr)
+        else:
+            for group in self.adamw.param_groups:
+                group["lr"] = lr
+            self.adamw.step()
         self.count += 1
         return norm

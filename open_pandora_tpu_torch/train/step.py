@@ -1,18 +1,31 @@
-"""The DynamiCrafter finetune train step, on one device.
+"""The train steps of the `dynamicrafter`, `finetune` and `alignment`
+stages, on one device.
 
-Counterpart of `make_finetune_step` and `_finetune_loss` in
-open_pandora_tpu/train/step.py (reference model.py:926-949 training_step
-and get_batch_input :828-884): VAE-encoded video latents sampled from the
-posterior, text and image conditioning, CFG dropout of the text context
-to the empty prompt, the frame-stride condition from the batch, and the
-diffusion loss; then the clipped AdamW update and the optional EMA.
+Counterpart of `make_finetune_step`, `_finetune_loss`,
+`make_wm_finetune_step` and `make_alignment_step` in
+open_pandora_tpu/train/step.py (reference model.py:926-949 training_step,
+get_batch_input :828-884, alignment_forward :886-923): VAE-encoded video
+latents sampled from the posterior, text and image conditioning, CFG
+dropout of the text context to the empty prompt, the frame-stride
+condition from the batch, and the diffusion loss; or the alignment KL;
+then the clipped AdamW update and the optional EMA. The `llm_sft` step is
+train/llm_step.py's, on the same `make_finetune_step`.
 
 Batch contract (as the JAX package's):
-  video        (b, T, H, W, 3) in [-1, 1]
-  cond_frames  (b, t_c, H, W, 3) in [-1, 1]  VAE conditioning frames
-  cond_images  (b, hc, wc, 3) in [0, 1]      CLIP image for cross-attn
-  text_tokens  (b, L) int                    tokenized caption
-  fps          (b,) int
+  video            (b, T, H, W, 3) in [-1, 1]
+  cond_frames      (b, t_c, H, W, 3) in [-1, 1]  VAE conditioning frames
+  cond_images      (b, hc, wc, 3) in [0, 1]      CLIP image for cross-attn
+                                                 (and, in the LLM stages,
+                                                 the CLIP tower's image)
+  text_tokens      (b, L) int                    tokenized caption
+  fps              (b,) int
+  llm_text_tokens  (b, n) int                    LLaMA ids (bos + caption),
+                                                 the LLM stages only
+
+In the LLM stages the connector trains: its learned [IMG_P] rows enter the
+LLaMA's input, so the frozen LLaMA trunk runs with autograd on and the
+gradient crosses all its layers, as JAX's value_and_grad sends it. The
+VAE encode and the OpenCLIP text and image encoders run under no_grad.
 
 The random draws (posterior noise `eps`, CFG dropout mask `uncond`,
 timesteps `t`, diffusion `noise`) come from an explicit torch.Generator
@@ -22,16 +35,22 @@ global RNG (see models/unet3d.py).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from open_pandora_tpu_torch.core.config import TrainConfig
 from open_pandora_tpu_torch.diffusion.losses import diffusion_loss
 from open_pandora_tpu_torch.models.dynamicrafter import DynamiCrafter
-from open_pandora_tpu_torch.models.encoders import empty_prompt_tokens
+from open_pandora_tpu_torch.models.encoders import (CLIP_MEAN, CLIP_STD,
+                                                    empty_prompt_tokens)
 from open_pandora_tpu_torch.models.vae import encode_video
+from open_pandora_tpu_torch.models.world_model import (MultimodalPrompt,
+                                                       WorldModel,
+                                                       round1_prompt)
 from open_pandora_tpu_torch.train.ema import EMA
 from open_pandora_tpu_torch.train.optim import Optimizer, trainable_partition
 
@@ -44,14 +63,15 @@ class TrainState:
     place), the optimizer over them, and the optional EMA shadow."""
 
     step: int
-    model: DynamiCrafter
+    model: nn.Module        # a DynamiCrafter, or a WorldModel
     trainable: Dict[str, torch.Tensor]
     optimizer: Optimizer
     ema: Optional[EMA] = None
 
     @classmethod
-    def create(cls, model: DynamiCrafter, stage: str,
+    def create(cls, model: nn.Module, stage: str,
                tcfg: TrainConfig) -> "TrainState":
+        """`stage` is a key of train.optim.TRAINABLE_KEYS."""
         trainable, _ = trainable_partition(model, stage)
         return cls(step=0, model=model, trainable=trainable,
                    optimizer=Optimizer(trainable, tcfg),
@@ -61,7 +81,11 @@ class TrainState:
 def _finetune_loss(model: DynamiCrafter, tcfg: TrainConfig,
                    batch: Dict[str, torch.Tensor], *,
                    generator: Optional[torch.Generator] = None,
-                   draws: Optional[Dict[str, torch.Tensor]] = None):
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   text_context: Optional[Callable] = None):
+    """The diffusion loss. `text_context(batch)` gives the text
+    conditioning (b, 77, 1024) with autograd on (the WorldModel's LLM
+    conditioning); without it the OpenCLIP text encoder gives it."""
     draws = draws or {}
     if generator is None and not set(DRAWS) <= draws.keys():
         raise ValueError(f"_finetune_loss: pass a generator or all of "
@@ -74,22 +98,28 @@ def _finetune_loss(model: DynamiCrafter, tcfg: TrainConfig,
         z = encode_video(model.first_stage_model, batch["video"].to(dev, dt),
                          scale_factor=cfg.diffusion.scale_factor,
                          generator=generator, eps=draws.get("eps"))
-        text_ctx = model.encode_text(batch["text_tokens"])
+    if text_context is not None:
+        text_ctx = text_context(batch)
+    with torch.no_grad():
+        if text_context is None:
+            text_ctx = model.encode_text(batch["text_tokens"])
         img_ctx = model.encode_image_context(batch["cond_images"])
         z_cond = model.get_latent_z(batch["cond_frames"])
-        # CFG dropout on the text conditioning only (model.py:860-868)
+        fs = batch["fps"].to(dev, torch.int64)
+        b = text_ctx.shape[0]
         if tcfg.uncond_prob > 0:
-            b = text_ctx.shape[0]
             null_ctx = model.encode_text(empty_prompt_tokens(
                 b, cfg.clip_text.context_length, device=dev))
             mask = draws.get("uncond")
             if mask is None:
                 mask = torch.rand((b,), generator=generator,
                                   device=dev) < tcfg.uncond_prob
-            text_ctx = torch.where(mask.to(dev).reshape(b, 1, 1), null_ctx,
-                                   text_ctx)
-        ctx = torch.cat([text_ctx, img_ctx], dim=1)
-        fs = batch["fps"].to(dev, torch.int64)
+    # CFG dropout on the text conditioning only (model.py:860-868), outside
+    # no_grad: the kept samples' LLM conditioning carries its gradient
+    if tcfg.uncond_prob > 0:
+        text_ctx = torch.where(mask.to(dev).reshape(b, 1, 1), null_ctx,
+                               text_ctx)
+    ctx = torch.cat([text_ctx, img_ctx], dim=1)
 
     def apply(x_noisy, t):
         return model.apply_model(x_noisy, t, ctx, z_cond, fs=fs)
@@ -102,22 +132,69 @@ def _finetune_loss(model: DynamiCrafter, tcfg: TrainConfig,
         l_simple_weight=cfg.diffusion.l_simple_weight)
 
 
-def make_finetune_step(model: DynamiCrafter, tcfg: TrainConfig,
-                       stage: str = "dynamicrafter") -> Callable:
+def llm_prompt(wm: WorldModel, batch) -> MultimodalPrompt:
+    """The round-1 prompt of a training batch: bos + caption ids
+    (`llm_text_tokens`) around the CLIP tower's view of `cond_images`
+    ([0, 1], normalised here with the CLIP mean and std)."""
+    imgs = batch["cond_images"].to(wm.device)
+    mean = torch.tensor(CLIP_MEAN, dtype=imgs.dtype, device=imgs.device)
+    std = torch.tensor(CLIP_STD, dtype=imgs.dtype, device=imgs.device)
+    return round1_prompt(batch["llm_text_tokens"].to(wm.device),
+                         images=((imgs - mean) / std)[:, None],
+                         prefix_len=wm.cfg.connector.image_prefix_length)
+
+
+def make_wm_finetune_step(wm: WorldModel, tcfg: TrainConfig) -> Callable:
+    """The `finetune` stage (model.py:926-949 + get_batch_input :828-884):
+    the text conditioning is the LLM's (get_diffusion_conditioning of the
+    round-1 prompt, its last round), UNet and connector train, and CFG
+    dropout swaps it for the OpenCLIP empty prompt (:860-868)."""
+
+    def text_context(batch):
+        return wm.get_diffusion_conditioning(llm_prompt(wm, batch))[:, -1]
+
+    return make_finetune_step(
+        wm, tcfg, stage="finetune",
+        loss_fn=functools.partial(_finetune_loss, wm.diffusion, tcfg,
+                                  text_context=text_context))
+
+
+def make_alignment_step(wm: WorldModel, tcfg: TrainConfig) -> Callable:
+    """The `alignment` stage (model.py:886-923, config_align.yaml): the
+    connector trains on the KL from the LLM conditioning to the frozen
+    OpenCLIP embedding of the caption (`text_tokens`)."""
+
+    def loss_fn(batch, *, generator=None, draws=None):
+        loss = wm.alignment_loss(llm_prompt(wm, batch),
+                                 batch["text_tokens"].to(wm.device))
+        return loss, {"loss": loss.detach()}
+
+    return make_finetune_step(wm, tcfg, stage="alignment", loss_fn=loss_fn)
+
+
+def make_finetune_step(model: nn.Module, tcfg: TrainConfig,
+                       stage: str = "dynamicrafter",
+                       loss_fn: Optional[Callable] = None) -> Callable:
     """step(state, batch, *, generator=None, draws=None) -> metrics
-    {loss, loss_simple, grad_norm} (0-dim tensors on the model's device;
-    grad_norm is the norm before clipping). Updates state in place."""
-    if stage != "dynamicrafter":
-        raise NotImplementedError(
-            f"stage {stage!r}: the LLM-conditioned stages wait for slice B")
+    (0-dim tensors on the model's device: the loss's, {loss, loss_simple}
+    for the diffusion loss, and grad_norm, the norm before clipping).
+    Updates state in place. `loss_fn(batch, *, generator, draws) -> (loss,
+    metrics)` is the stage's loss; the default is the `dynamicrafter`
+    stage's, on a DynamiCrafter."""
+    if loss_fn is None:
+        if stage != "dynamicrafter":
+            raise ValueError(f"stage {stage!r} takes its own loss_fn "
+                             "(make_wm_finetune_step, make_alignment_step, "
+                             "train.llm_step.make_llm_sft_step)")
+        loss_fn = functools.partial(_finetune_loss, model, tcfg)
 
     def step(state: TrainState, batch, *,
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None):
-        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        batch = {k: v if isinstance(v, MultimodalPrompt)
+                 else torch.as_tensor(v) for k, v in batch.items()}
         state.optimizer.zero_grad()
-        loss, metrics = _finetune_loss(model, tcfg, batch,
-                                       generator=generator, draws=draws)
+        loss, metrics = loss_fn(batch, generator=generator, draws=draws)
         loss.backward()
         gnorm = state.optimizer.step()
         if state.ema is not None:

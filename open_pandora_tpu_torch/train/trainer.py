@@ -1,22 +1,32 @@
-"""Training entry point of the port: the `dynamicrafter` stage (UNet only,
-no LLM in the loop), on one device.
+"""Training entry point of the port: the `dynamicrafter` (UNet only, no
+LLM in the loop), `alignment` (connector only, KL to the OpenCLIP text
+embedding), `finetune` (UNet + connector, the LLM conditioning in the loop)
+and `llm_sft` (ChatUniVi's LLM SFT, full or LoRA) stages, on one device.
 
 Counterpart of open_pandora_tpu/train/trainer.py (reference
 trainer.py:24-105, utils/utils_train.py): config merge, workspace, model
-and params in the config's dtype policy, the finetune step, metrics.jsonl,
-checkpoints every ckpt_every steps and at the end, auto-resume.
+and params in the config's dtype policy, the stage's step, metrics.jsonl,
+checkpoints of the trainable parameters every ckpt_every steps and at the
+end, auto-resume.
 
 Usage:
   python -m open_pandora_tpu_torch.train.trainer --synthetic-data \\
-      --set train.stage=dynamicrafter --max-steps N [--name run1]
+      --set train.stage=STAGE --max-steps N [--name run1]
       [--logdir ./runs] [--config cfg.yaml]... [--set key.path=value]...
       [--ckpt model.ckpt] [--tiny] [--auto-resume] [--device cpu]
+      [--chat-path chat.json]... [--image-root DIR] [--video-root DIR]
 
 It runs on the CUDA card unless `--device cpu` is given. `--tiny` takes the
-port's small config (eval/inference.debug_config, 32x32 frames). Waiting
-for later slices: the alignment, finetune and llm_sft stages (slice B, the
-LLM conditioning), WebVid data (OpenCV), multi-device runs (slice E; a
-config's `mesh` section may only ask for one device) and `--sample-every`.
+port's small config (pipeline/chat_wm.debug_world_config, 32x32 frames).
+The alignment, finetune and llm_sft stages build a WorldModel with random
+weights (or `--ckpt`, the released composite) and tokenize with the LLaMA
+tokenizer (the hash fallback without one). `llm_sft` reads conversation
+records from `--chat-path` (images under `--image-root`), or without one
+`synthetic_conversations(8 * batch)`; with `llama.lora_rank > 0` only the
+adapters and mm_projector train. Waiting for later slices: WebVid data
+(OpenCV), video SFT records (slice C's video I/O), multi-device runs (slice
+E; a config's `mesh` section may only ask for one device) and
+`--sample-every` (utils/image_grid).
 """
 
 from __future__ import annotations
@@ -32,12 +42,9 @@ import torch
 
 log = logging.getLogger("open_pandora_tpu_torch.train")
 
-# stages of the JAX trainer that need a slice not ported yet
-WAITING = {
-    "alignment": "slice B (LLM conditioning: connector, LLaMA, CLIP tower)",
-    "finetune": "slice B (LLM conditioning: connector, LLaMA, CLIP tower)",
-    "llm_sft": "slice B (LLM conditioning: LLaMA and its SFT data)",
-}
+STAGES = ("dynamicrafter", "alignment", "finetune", "llm_sft")
+# the stages with the LLM in the loop: they build a WorldModel
+LLM_STAGES = STAGES[1:]
 
 # settings the config accepts, as the JAX package's does, that no ported
 # code reads, with the reason; run() refuses a value other than the default
@@ -69,6 +76,11 @@ def build_parser():
     p.add_argument("--tiny", action="store_true",
                    help="the small debug config (smoke mode)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--chat-path", action="append", default=[],
+                   help="conversation JSON file(s) for train.stage=llm_sft "
+                        "(ChatUniVi LazySupervisedDataset records)")
+    p.add_argument("--image-root", default=None)
+    p.add_argument("--video-root", default=None)
     return p
 
 
@@ -77,13 +89,10 @@ def run(argv=None):
     from open_pandora_tpu_torch.core.checkpoint import (
         find_latest_checkpoint, init_workspace, restore_params, save_params)
     from open_pandora_tpu_torch.core.config import load_config, param_dtype
-    from open_pandora_tpu_torch.data.webvid import (PrefetchLoader,
-                                                    SyntheticVideoDataset)
     from open_pandora_tpu_torch.eval.inference import (build_model,
-                                                       debug_config,
                                                        load_checkpoint)
-    from open_pandora_tpu_torch.train.step import (TrainState,
-                                                   make_finetune_step)
+    from open_pandora_tpu_torch.pipeline.chat_wm import (build_world_model,
+                                                         debug_world_config)
     from open_pandora_tpu_torch.utils.loggers import MetricsLogger
 
     args = build_parser().parse_args(argv)
@@ -91,11 +100,9 @@ def run(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to train on "
                            "the CPU")
-    if not args.synthetic_data:
-        raise NotImplementedError("WebVid data waits for OpenCV on the "
-                                  "card's machine; pass --synthetic-data")
     if args.tiny:
-        cfg = load_config(args.config, args.overrides, base=debug_config())
+        cfg = load_config(args.config, args.overrides,
+                          base=debug_world_config())
         height = width = 32
         video_len = cfg.unet.temporal_length
     else:
@@ -106,11 +113,11 @@ def run(argv=None):
     if args.max_steps is not None:
         tcfg = dataclasses.replace(tcfg, max_steps=args.max_steps)
     stage = tcfg.stage
-    if stage in WAITING:
-        raise NotImplementedError(f"stage {stage!r} waits for "
-                                  f"{WAITING[stage]}")
-    if stage != "dynamicrafter":
-        raise ValueError(f"unknown stage {stage!r}")
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage!r}; choose one of {STAGES}")
+    if stage != "llm_sft" and not args.synthetic_data:
+        raise NotImplementedError("WebVid data waits for OpenCV on the "
+                                  "card's machine; pass --synthetic-data")
     if cfg.mesh.model_parallel != 1 or cfg.mesh.data_parallel not in (-1, 1):
         raise NotImplementedError(f"mesh {cfg.mesh}: more than one device "
                                   "waits for slice E (multi-GPU)")
@@ -123,15 +130,18 @@ def run(argv=None):
 
     ws = init_workspace(args.logdir, args.name, cfg)
     torch.manual_seed(tcfg.seed)   # the UNet's dropout masks
-    model = build_model(cfg, device=device, dtype=param_dtype(
-        cfg.dtype_policy), generator=torch.Generator(device=device)
-        .manual_seed(tcfg.seed))
+    dtype = param_dtype(cfg.dtype_policy)
+    gen = torch.Generator(device=device).manual_seed(tcfg.seed)
+    if stage in LLM_STAGES:
+        model = build_world_model(cfg, device=device, dtype=dtype,
+                                  generator=gen)
+    else:
+        model = build_model(cfg, device=device, dtype=dtype, generator=gen)
     if args.ckpt:
         load_checkpoint(model, args.ckpt)
-    state = TrainState.create(model, stage, tcfg)
-    step_fn = make_finetune_step(model, tcfg, stage)
+    state, step_fn = _stage_step(model, tcfg, stage)
     log.info("stage=%s device=%s dtype=%s trainable=%d", stage, device,
-             model.dtype, sum(p.numel() for p in state.trainable.values()))
+             dtype, sum(p.numel() for p in state.trainable.values()))
 
     if args.auto_resume:
         latest = find_latest_checkpoint(ws["checkpoints"])
@@ -140,11 +150,7 @@ def run(argv=None):
             restore_params(latest, state.trainable)
             state.step = int(os.path.basename(latest)[5:])
 
-    loader = PrefetchLoader(
-        SyntheticVideoDataset(video_length=video_len,
-                              resolution=(height, width),
-                              clip_size=cfg.clip_vision.image_size),
-        tcfg.batch_size_per_device, text_len=cfg.clip_text.context_length)
+    loader = _loader(args, cfg, tcfg, stage, (height, width), video_len)
     metrics = MetricsLogger(ws["loginfo"])
     gen = torch.Generator(device=device).manual_seed(tcfg.seed)
     t_last, step_last = time.perf_counter(), state.step
@@ -173,6 +179,58 @@ def run(argv=None):
         metrics.close()
     log.info("done at step %d", state.step)
     return state
+
+
+def _stage_step(model, tcfg, stage: str):
+    """(TrainState, step function) of a stage (JAX trainer.py:174-190)."""
+    from open_pandora_tpu_torch.train.llm_step import (make_llm_sft_step,
+                                                       sft_stage)
+    from open_pandora_tpu_torch.train.step import (TrainState,
+                                                   make_alignment_step,
+                                                   make_finetune_step,
+                                                   make_wm_finetune_step)
+    if stage == "alignment":
+        step_fn, key = make_alignment_step(model, tcfg), stage
+    elif stage == "finetune":
+        step_fn, key = make_wm_finetune_step(model, tcfg), stage
+    elif stage == "llm_sft":
+        step_fn, key = make_llm_sft_step(model, tcfg), sft_stage(model)
+    else:
+        step_fn, key = make_finetune_step(model, tcfg), stage
+    return TrainState.create(model, key, tcfg), step_fn
+
+
+def _loader(args, cfg, tcfg, stage: str, hw, video_len: int):
+    """The stage's batches (JAX trainer.py:204-239): collated conversations
+    for llm_sft, synthetic clips otherwise (with LLaMA caption ids in the
+    LLM stages)."""
+    from open_pandora_tpu_torch.data.webvid import (PrefetchLoader,
+                                                    SyntheticVideoDataset)
+    from open_pandora_tpu_torch.pipeline.tokenizers import load_tokenizer
+
+    batch = tcfg.batch_size_per_device
+    if stage == "llm_sft":
+        from open_pandora_tpu_torch.data.sft import (ConversationDataset,
+                                                     synthetic_conversations)
+        ds = ConversationDataset(
+            args.chat_path, load_tokenizer(), image_root=args.image_root,
+            video_root=args.video_root,
+            clip_size=cfg.clip_tower.image_size, seed=tcfg.seed,
+            records=(None if args.chat_path
+                     else synthetic_conversations(8 * batch, tcfg.seed)))
+
+        class SFTLoader:
+            def epoch(self, _epoch):
+                return ds.batches(batch, cfg, bucket=32)
+        return SFTLoader()
+    llm = stage in LLM_STAGES
+    # in the LLM stages cond_images is also the CLIP tower's input
+    clip_size = (cfg.clip_tower if llm else cfg.clip_vision).image_size
+    return PrefetchLoader(
+        SyntheticVideoDataset(video_length=video_len, resolution=hw,
+                              clip_size=clip_size),
+        batch, text_len=cfg.clip_text.context_length,
+        llm_tokenizer=load_tokenizer() if llm else None)
 
 
 def main(argv=None) -> int:

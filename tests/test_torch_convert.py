@@ -216,7 +216,6 @@ def test_random_init_leaves_nothing_zero(world_params):
 
 
 @pytest.mark.parametrize("make,slice_", [
-    (lambda: tcfg.LLaMAConfig(lora_rank=64), "LLM training"),
     (lambda: tcfg.CLIPTowerConfig(tower_type="eva_vit_g"), "EVA"),
     (lambda: tcfg.ConnectorConfig(use_diffusion_text_encoder=True),
      "eval-and-tools"),

@@ -253,6 +253,10 @@ def test_port_imports_without_jax():
             "import open_pandora_tpu_torch.core.convert; "
             "import open_pandora_tpu_torch.train.trainer; "
             "import open_pandora_tpu_torch.train.step; "
+            "import open_pandora_tpu_torch.train.llm_step; "
+            "import open_pandora_tpu_torch.train.optim8bit; "
+            "import open_pandora_tpu_torch.models.lora; "
+            "import open_pandora_tpu_torch.data.sft; "
             "import open_pandora_tpu_torch.core.checkpoint; "
             "import open_pandora_tpu_torch.data.webvid; "
             "import open_pandora_tpu_torch.utils.loggers; "

@@ -1,9 +1,11 @@
 """PyTorch port, the trainer: the CLI end to end on the CPU (tiny config,
 synthetic data, two steps, then an --auto-resume run to step 3) in a
-process where importing jax fails; the stages and meshes that wait for
-later slices; load_config against the JAX package's; and the kernel
-launches of a full-width training step, traced on the meta
-device through stand-in launchers, against chip_smoke's prediction."""
+process where importing jax fails, for every stage (dynamicrafter,
+alignment, finetune, llm_sft full and with LoRA); the records, settings
+and meshes that wait for later slices; load_config against the JAX
+package's; the kernel launches of a full-width training step, traced on
+the meta device through stand-in launchers, against chip_smoke's
+prediction; and chip_smoke's launch prediction for the LLM stages."""
 
 import collections
 import dataclasses
@@ -12,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,6 +22,7 @@ import chip_smoke
 from open_pandora_tpu_torch.core.checkpoint import find_latest_checkpoint
 from open_pandora_tpu_torch.core.config import PandoraConfig, load_config
 from open_pandora_tpu_torch.models import unet3d as tunet
+from open_pandora_tpu_torch.models.lora import is_adapter
 from open_pandora_tpu_torch.ops import flash_attention as tfa
 from open_pandora_tpu_torch.ops import small_attention as tsa
 from open_pandora_tpu_torch.ops.attention import attention_route
@@ -28,10 +32,10 @@ from open_pandora_tpu_torch.train import trainer
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _train(tmp_path, *extra):
+def _train(tmp_path, *extra, stage="dynamicrafter"):
     argv = ["--tiny", "--synthetic-data", "--device", "cpu", "--logdir",
             str(tmp_path), "--name", "run", "--set",
-            "train.stage=dynamicrafter", "--set", "train.log_every=1",
+            f"train.stage={stage}", "--set", "train.log_every=1",
             *extra]
     code = ("import sys; sys.modules['jax'] = None; "
             "from open_pandora_tpu_torch.train.trainer import main; "
@@ -66,10 +70,45 @@ def test_trainer_cli_and_resume(tmp_path):
     assert (tmp_path / "run" / "configs" / "config.json").exists()
 
 
+# the checkpoint holds the stage's trainable parameters: their prefixes
+_LLAMA = ("video_model.model.embed_tokens.", "video_model.model.layers.",
+          "video_model.model.norm.", "video_model.lm_head.")
+_MM = ("video_model.model.mm_projector.",)
+
+
+@pytest.mark.parametrize("stage,overrides,prefixes", [
+    ("alignment", [], ("connector.",)),
+    ("finetune", [], ("diffusion_model.model.diffusion_model.",
+                      "connector.")),
+    ("llm_sft", [], _LLAMA + _MM),
+    ("llm_sft", ["llama.lora_rank=4"], _MM),
+])
+def test_llm_stage_cli_and_resume(tmp_path, stage, overrides, prefixes):
+    extra = [a for o in overrides for a in ("--set", o)]
+    recs = _train(tmp_path, "--max-steps", "2", *extra, stage=stage)
+    assert [r["step"] for r in recs] == [1, 2]
+    for r in recs:
+        assert all(np.isfinite(r[k]) for k in ("loss", "grad_norm"))
+        assert r["grad_norm"] > 0
+    ckpts = tmp_path / "run" / "checkpoints"
+    saved = torch.load(ckpts / "step_2" / "params.pt", weights_only=True)
+    lora = bool(overrides)
+    # every key under the stage's prefixes, each prefix present; LoRA:
+    # mm_projector and the adapters alone
+    for key in saved:
+        assert key.startswith(prefixes) or (lora and is_adapter(key)), key
+    assert all(any(k.startswith(p) for k in saved) for p in prefixes)
+    assert not lora or sum(map(is_adapter, saved)) == 2 * 7 * 2
+    recs = _train(tmp_path, "--max-steps", "3", "--auto-resume", *extra,
+                  stage=stage)
+    assert [r["step"] for r in recs] == [1, 2, 3]
+    after = torch.load(ckpts / "step_3" / "params.pt", weights_only=True)
+    assert after.keys() == saved.keys()
+    assert any(not torch.equal(after[k], saved[k]) for k in saved)
+
+
 @pytest.mark.parametrize("overrides,slice_", [
-    (["train.stage=alignment"], "slice B"),
-    (["train.stage=finetune"], "slice B"),
-    (["train.stage=llm_sft"], "slice B"),
+    (["train.stage=llm_sft", "--chat-path={video_chat}"], "slice C"),
     (["train.stage=dynamicrafter", "mesh.data_parallel=2"], "slice E"),
     (["train.stage=dynamicrafter", "mesh.shard_opt_state=false"], "slice E"),
     (["train.stage=dynamicrafter", "mesh.data_axis=batch"], "slice E"),
@@ -78,10 +117,17 @@ def test_trainer_cli_and_resume(tmp_path):
     (["train.stage=dynamicrafter", "train.cond_frames=2"], "does not read"),
 ])
 def test_waiting_paths_name_their_slice(tmp_path, overrides, slice_):
+    """Entries starting with -- are arguments; the others --set values.
+    {video_chat} is a conversation file with one video record."""
+    chat = tmp_path / "video_chat.json"
+    chat.write_text(json.dumps([{"video": "clip.mp4", "conversations": [
+        {"from": "human", "value": "<video>\nwhat happens"},
+        {"from": "gpt", "value": "the car turns"}]}]))
+    args = [a for o in overrides for a in (
+        [o.format(video_chat=chat)] if o.startswith("--") else ["--set", o])]
     with pytest.raises(NotImplementedError, match=slice_):
         trainer.run(["--tiny", "--synthetic-data", "--device", "cpu",
-                     "--logdir", str(tmp_path),
-                     *[a for o in overrides for a in ("--set", o)]])
+                     "--logdir", str(tmp_path), *args])
 
 
 def test_load_config_matches_jax(monkeypatch):
@@ -172,3 +218,34 @@ def test_full_width_train_step_launches_as_predicted(monkeypatch):
                            "small_bwd": 34}
     assert {k: want[k] - 17 * vae[k] for k in calls} == dict(calls)
     assert (want["flash"], want["group_norm"]) == (37, 374)
+
+
+def test_llm_stage_launches_as_predicted():
+    """chip_smoke's per-step prediction for phase 8 at full width
+    (PandoraConfig(), 320x512, batch 1), from the routing functions alone:
+    finetune launches the dynamicrafter step's kernels (its UNet and VAE),
+    and no attention of the LLM side (the CLIP tower, the 192-row LLaMA
+    prefill, masked in llm_sft, the Q-Former, the OpenCLIP encoders, the
+    Resampler) takes a kernel route, so alignment and llm_sft launch
+    nothing."""
+    cfg = PandoraConfig()
+    plen = chip_smoke.llm_prompt_len(cfg)
+    assert plen == 192
+    want = {stage: chip_smoke.predicted_llm_stage_launches(
+        cfg, stage, 320, 512, 1, plen)
+        for stage in ("alignment", "finetune", "llm_sft")}
+    assert want["finetune"] == chip_smoke.predicted_train_launches(
+        cfg, 320, 512, batch=1, frames=17, bf16=True)
+    assert {k: v for k, v in want["finetune"].items() if v} == {
+        "flash": 37, "flash_bwd": 10, "small": 68, "small_bwd": 34,
+        "group_norm": 374}
+    assert not any(want["alignment"].values())
+    assert not any(want["llm_sft"].values())
+    for stage in want:
+        sites = chip_smoke.llm_attention_sites(cfg, stage, 1, plen)
+        assert len(sites) == {"alignment": 5, "finetune": 7,
+                              "llm_sft": 2}[stage]
+        for q, k, causal, masked, calls, _ in sites:
+            assert calls > 0
+            assert attention_route(q, k, causal=causal, masked=masked,
+                                   on_device=True) == "plain", (stage, q, k)

@@ -28,7 +28,8 @@ from open_pandora_tpu_torch.core import convert as tconvert
 from open_pandora_tpu_torch.core.config import TrainConfig
 from open_pandora_tpu_torch.eval.inference import build_model, debug_config
 from open_pandora_tpu_torch.train.step import TrainState, make_finetune_step
-from torch_parity import jax_config, max_abs, rerandomize_
+from torch_parity import (jax_config, jax_finetune_draws, max_abs,
+                          rerandomize_)
 
 B, HW = 2, 32
 TRAIN = dict(learning_rate=1e-4, uncond_prob=0.5, grad_clip_norm=0.5)
@@ -51,16 +52,8 @@ def _batch(cfg):
 def _jax_draws(key, cfg, tcfg, latent_shape):
     """The draws `_finetune_loss` and `diffusion_loss` make from `key`
     (train/step.py:65, diffusion/losses.py:46-52)."""
-    k_enc, k_drop, k_diff, _ = jax.random.split(key, 4)
-    t_key, n_key = jax.random.split(k_diff)
-    return {
-        "eps": np.asarray(jax.random.normal(k_enc, latent_shape)),
-        "uncond": np.asarray(jax.random.bernoulli(
-            k_drop, tcfg.uncond_prob, (B, 1, 1))).reshape(B),
-        "t": np.asarray(jax.random.randint(t_key, (B,), 0,
-                                           cfg.diffusion.timesteps)),
-        "noise": np.asarray(jax.random.normal(n_key, latent_shape)),
-    }
+    return jax_finetune_draws(key, tcfg.uncond_prob, cfg.diffusion.timesteps,
+                              B, latent_shape)
 
 
 def _no_dropout(rate, deterministic=None, **kw):

@@ -47,10 +47,10 @@ def fill(path, s, rng):
     return (base + spread * rng.standard_normal(s.shape)).astype(np.float32)
 
 
-def make_world(seed=31):
+def make_world(seed=31, cfg=None):
     """(cfg, JAX WorldModel, its params, the port's WorldModel) on the same
-    weights."""
-    cfg = debug_world_config(T)
+    weights; cfg defaults to debug_world_config(T)."""
+    cfg = cfg or debug_world_config(T)
     jmodel = jwm.WorldModel(jax_config(cfg))
     shapes = jax.eval_shape(
         functools.partial(jmodel.init_params, height=32, width=32),

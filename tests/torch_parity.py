@@ -61,3 +61,22 @@ def jax_config(cfg: tcfg.PandoraConfig) -> jcfg.PandoraConfig:
 def max_abs(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float64)
                                - np.asarray(b, np.float64))))
+
+
+def jax_finetune_draws(key, uncond_prob: float, timesteps: int, batch: int,
+                       latent_shape) -> dict:
+    """The draws the JAX finetune losses make from `key` (train/step.py
+    `_finetune_loss` and `make_wm_finetune_step`'s loss_fn split it into
+    k_enc, k_drop, k_diff, k_dropout; diffusion/losses.py splits k_diff
+    into t and noise), as NumPy arrays for the port's `draws`."""
+    import jax
+
+    k_enc, k_drop, k_diff, _ = jax.random.split(key, 4)
+    t_key, n_key = jax.random.split(k_diff)
+    return {
+        "eps": np.asarray(jax.random.normal(k_enc, latent_shape)),
+        "uncond": np.asarray(jax.random.bernoulli(
+            k_drop, uncond_prob, (batch, 1, 1))).reshape(batch),
+        "t": np.asarray(jax.random.randint(t_key, (batch,), 0, timesteps)),
+        "noise": np.asarray(jax.random.normal(n_key, latent_shape)),
+    }
