@@ -69,6 +69,23 @@ Phases, each printing its own lines and raising on failure:
               step, peak memory, launches against the routing, the
               connector's prefix-row gradient (alignment, finetune) and
               which tensors LoRA moved
+  9. entry    the user's entry points on the full-width PandoraConfig()
+              WorldModel (bf16, 320x512, random weights): cli.build_chat
+              from parsed defaults, cli.run with two actions at DDIM-4,
+              then server.make_server on 127.0.0.1 in a thread around the
+              same session (/health, the page, two POST /generate whose
+              injected generate_fn reads and answers np.save bytes); per
+              call the rounds' seconds by part and launches against the
+              routing, the first request's frames equal to cli.run's
+ 10. train_hires the product's 576x1024 finetune (configs/finetune_1024.yaml)
+              through the trainer, 2 steps, a sample grid at step 2,
+              TensorBoard and CSV loggers: once as it is, once under
+              PANDORA_FINE_REMAT; per run seconds per step, peak memory
+              of each step's forward and backward, of its optimizer step
+              and of the sample, loss, gradient norm, launches
+              against the routing; the sample grid's PNG size, the CSV's
+              rows and the event file's first record's CRCs checked, the
+              two runs' first losses within 1e-3
 The last three lines are the card's name and power limit, the kernels'
 JSON summary and the run's JSON result.
 """
@@ -313,8 +330,12 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
             B, N, M, H, D, layout)
         out = kern(q, k, v, **kw)
         torch.cuda.synchronize()
-        ref32 = plain(q.float(), k.float(), v.float(), **kw)
-        ref_dt = plain(q, k, v, **kw)
+        # the plain version by batch slices where its fp32 scores exceed
+        # 8 GB: (16, 9216, 9216, 5 heads) is 27 GB in one piece
+        chunk = B if B * H * N * M <= 2e9 else max(1, int(2e9 // (H * N * M)))
+        plain_b = _by_batch(functools.partial(plain, **kw), chunk)
+        ref32 = plain_b(q.float(), k.float(), v.float())
+        ref_dt = plain_b(q, k, v)
         extra = {}
         if flash:  # (o, lse); the LSE is fp32 on both sides
             (out, lse), (ref32, lse32), ref_dt = out, ref32, ref_dt[0]
@@ -325,7 +346,7 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
         qs, ks, vs = _heads_first(q, k, v)
         times = {
             "ms": cuda_ms(lambda: kern(q, k, v, **kw)),
-            "plain_ms": cuda_ms(lambda: plain(q, k, v, **kw)),
+            "plain_ms": cuda_ms(lambda: plain_b(q, k, v)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask))}
         # LSE: fp32 statistics of the same fp32 scores, summation order
@@ -372,6 +393,10 @@ def check_flash(summary: dict, device, gen) -> None:
         (2, 1100, 1000, 4, 128, bf16, True),    # causal, N > M: rows with
         (2, 1100, 1000, 4, 128, f32, True),     # no allowed key
         (1, 384, 384, 32, 128, bf16, True),     # LLaMA's causal prefill
+        # attn1 of a 576x1024 training step (unfused route), levels 0-2
+        (16, 9216, 9216, 5, 64, bf16, False),
+        (16, 2304, 2304, 10, 64, bf16, False),
+        (16, 576, 576, 20, 64, bf16, False),
     ]
     _check_attention(summary, "flash_fwd",
                      functools.partial(flash_attention, return_lse=True),
@@ -408,6 +433,10 @@ def check_small(summary: dict, device, gen) -> None:
         (320, 16, 16, 20, 64, bf16, "packed"),
         (300, 16, 16, 4, 36, bf16),
         (320, 16, 16, 20, 64, bf16, "offset"),
+        # the temporal sites of a 576x1024 training step, levels 0-2
+        (9216, 16, 16, 5, 64, bf16),
+        (2304, 16, 16, 10, 64, bf16),
+        (576, 16, 16, 20, 64, bf16),
     ]
     _check_attention(summary, "small_attn_fwd", small_attention,
                      small_attention_plain, cases, False, device, gen)
@@ -426,28 +455,34 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
 
     bf16, f32 = torch.bfloat16, torch.float32
     # (B, N, M, H, D, dtype, causal): the training step's attn1 sites at
-    # batch 1 (b*t = 16 frames), level-0 attn1 of a 576x1024 training step,
-    # a causal N < M with a ragged M, the narrow model's sites in fp32
+    # batch 1 (b*t = 16 frames), attn1 of a 576x1024 training step at
+    # levels 0-2, a causal N < M with a ragged M, the narrow model's sites
+    # in fp32
     flash_cases = [
         (16, 2560, 2560, 5, 64, bf16, False),
         (16, 640, 640, 10, 64, bf16, False),
         (16, 9216, 9216, 5, 64, bf16, False),
+        (16, 2304, 2304, 10, 64, bf16, False),
+        (16, 576, 576, 20, 64, bf16, False),
         (2, 1000, 1100, 4, 128, bf16, True),
         (2, 1000, 1100, 4, 128, f32, True),
         (16, 2560, 2560, 2, 32, f32, False),
         (16, 640, 640, 4, 32, f32, False),
     ]
     # the temporal sites at batch 1 (b*h*w positions, t = 16): 40x64,
-    # 20x32, 10x16, 5x8 and init_attn; ragged N = M = 7 and N < M, the k16
-    # tail (D = 72), q, k, v as strided views of one packed projection;
-    # D = 36 and a q off 16-byte alignment (the scalar kernel); the narrow
-    # model's in fp32
+    # 20x32, 10x16, 5x8 and init_attn; at 576x1024, 72x128, 36x64 and
+    # 18x32; ragged N = M = 7 and N < M, the k16 tail (D = 72), q, k, v as
+    # strided views of one packed projection; D = 36 and a q off 16-byte
+    # alignment (the scalar kernel); the narrow model's in fp32
     small_cases = [
         (2560, 16, 16, 5, 64, bf16),
         (640, 16, 16, 10, 64, bf16),
         (160, 16, 16, 20, 64, bf16),
         (40, 16, 16, 20, 64, bf16),
         (2560, 16, 16, 8, 64, bf16),
+        (9216, 16, 16, 5, 64, bf16),
+        (2304, 16, 16, 10, 64, bf16),
+        (576, 16, 16, 20, 64, bf16),
         (300, 7, 7, 3, 48, bf16),
         (100, 7, 16, 3, 48, bf16),
         (300, 16, 16, 4, 72, bf16),
@@ -1604,10 +1639,13 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
 
 
 def predicted_train_launches(cfg, height: int, width: int, batch: int,
-                             frames: int, bf16: bool) -> dict:
+                             frames: int, bf16: bool,
+                             fine_remat: bool = False) -> dict:
     """Kernel launches of one finetune step: the UNet in training takes the
     unfused route (flash and small attention), forward once, again in the
-    backward where cfg.unet.use_checkpoint recomputes each block, and each
+    backward where cfg.unet.use_checkpoint recomputes each block, once
+    more under PANDORA_FINE_REMAT (`fine_remat`: each attention is
+    recomputed on its own inside the block's recompute), and each
     attention's backward kernel once; the frozen VAE encodes `frames`
     frames one at a time (the video and the conditioning frames) in eval,
     on its GroupNorm kernel in bf16. The text and image encoders launch
@@ -1616,7 +1654,7 @@ def predicted_train_launches(cfg, height: int, width: int, batch: int,
                               fused=False, batch=batch)["per_eval"]
     encode = predicted_launches(cfg, height, width, 1, frame_chunk=1,
                                 fused=bf16)["encode"]
-    fwd = 2 if cfg.unet.use_checkpoint else 1
+    fwd = 1 + bool(cfg.unet.use_checkpoint) + fine_remat
     counts = {k: frames * encode[k] for k in KERNEL_KEYS}
     for key, bwd in (("flash", "flash_bwd"), ("small", "small_bwd")):
         counts[key] += fwd * unet[key]
@@ -2147,7 +2185,8 @@ def llm_attention_sites(cfg, stage: str, batch: int, prompt_len: int
 
 
 def predicted_llm_stage_launches(cfg, stage: str, height: int, width: int,
-                                 batch: int, prompt_len: int) -> dict:
+                                 batch: int, prompt_len: int,
+                                 fine_remat: bool = False) -> dict:
     """Kernel launches of one step of an LLM stage, from the routing
     functions: finetune's UNet and VAE launch as the dynamicrafter step
     does (predicted_train_launches); every attention site of the LLM side
@@ -2158,7 +2197,8 @@ def predicted_llm_stage_launches(cfg, stage: str, height: int, width: int,
     if stage == "finetune":
         counts = predicted_train_launches(
             cfg, height, width, batch=batch,
-            frames=cfg.train.video_length + 1, bf16=True)
+            frames=cfg.train.video_length + 1, bf16=True,
+            fine_remat=fine_remat)
     for q, k, causal, masked, calls, backward in llm_attention_sites(
             cfg, stage, batch, prompt_len):
         route = attention_route(q, k, causal=causal, masked=masked,
@@ -2355,6 +2395,298 @@ def run_train_llm(device, seed: int) -> dict:
     return total
 
 
+# -- phase 9: the CLI and the HTTP server at full width -------------------------
+
+ENTRY_STEPS = 4
+ENTRY_ACTIONS = ("the car drives forward along the coastal road",
+                 "the car turns left towards the sea")
+ENTRY_KEYS = EVAL_KEYS
+
+
+def _post_generate(base: str, image: np.ndarray, actions, **fields) -> bytes:
+    """POST /generate with the image as np.save bytes (the card's machine
+    decodes neither PNG nor mp4) and the form's fields."""
+    import io
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.save(buf, image)
+    boundary = "chipsmokeboundary"
+    parts = [("image", buf.getvalue()),
+             ("actions", "\n".join(actions).encode()),
+             *((k, str(v).encode()) for k, v in fields.items())]
+    body = b"".join(
+        f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"'
+        f'\r\n\r\n'.encode() + v + b"\r\n" for k, v in parts)
+    body += f"--{boundary}--\r\n".encode()
+    req = urllib.request.Request(base + "/generate", data=body, headers={
+        "Content-Type": f"multipart/form-data; boundary={boundary}"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.read()
+
+
+def run_entry(device, seed: int) -> dict:
+    """The user's entry points on the full-width PandoraConfig()
+    WorldModel (bf16, 320x512, random weights, as the CLI without --ckpt):
+    cli.build_chat from parsed defaults, cli.run with two actions at
+    DDIM-4; then server.make_server on 127.0.0.1 (port 0) in a thread
+    around the same session: /health, the page, and two POST /generate
+    requests answered by an injected generate_fn (np.load of the upload,
+    cli.run, np.save of the frames). The first request's frames must equal
+    cli.run's on the same seed, the second's (the next seed) differ."""
+    import io
+    import threading
+    import urllib.request
+
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.pipeline import cli, server
+
+    args = cli.build_parser().parse_args(
+        ["--image", "unused.png", "--action", ENTRY_ACTIONS[0],
+         "--action", ENTRY_ACTIONS[1], "--ddim-steps", str(ENTRY_STEPS),
+         "--seed", str(seed)])
+    cfg = PandoraConfig()
+    h, w = args.height, args.width
+    t0 = time.perf_counter()
+    chat = cli.build_chat(args)
+    torch.cuda.synchronize()
+    log("entry", f"cli.build_chat: {args.height}x{args.width} bf16={args.bf16}"
+        f" device={args.device}, built in {time.perf_counter() - t0:.1f} s")
+    image = np.random.default_rng(seed + 20).integers(
+        0, 256, (360, 640, 3), dtype=np.uint8)
+    # two rounds: round 1 encodes one conditioning frame, round 2 four
+    want = {k: sum(predicted_round(cfg, h, w, ENTRY_STEPS, c)[k]
+                   for c in (1, 4)) for k in KERNEL_KEYS}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    total = dict.fromkeys(KERNEL_KEYS, 0)
+
+    def counted(tag):
+        got = read_launches()
+        if got != want:
+            raise AssertionError(f"{tag}: launches {got} != {want}")
+        for k in KERNEL_KEYS:
+            total[k] += got[k]
+        reset_launches()
+
+    frames = cli.run(chat, image, args)
+    counted("cli.run")
+    times = [dict(r) for r in chat.round_times]
+    log("entry", json.dumps({
+        "call": "cli.run", "rounds": times, "frames": list(frames.shape),
+        "std": float(frames.std()), "launches": want}))
+    t = cfg.unet.temporal_length    # round 1 gives all but its last 4
+    if frames.shape != (2 * t - 4, h, w, 3) or frames.dtype != np.uint8:
+        raise AssertionError(f"bad frames {frames.shape} {frames.dtype}")
+    if float(frames.std()) == 0.0:
+        raise AssertionError("constant clip")
+
+    lock = threading.Lock()
+
+    def generate_fn(image_bytes, actions, **kw):
+        with lock:
+            run_args = copy.copy(args)
+            run_args.action = list(actions)
+            run_args.ddim_steps = kw.get("ddim_steps", args.ddim_steps)
+            run_args.seed = kw.get("seed", args.seed)
+            out = cli.run(chat, np.load(io.BytesIO(image_bytes)), run_args)
+            buf = io.BytesIO()
+            np.save(buf, out)
+            return buf.getvalue()
+
+    srv = server.make_server(generate_fn, port=0, host="127.0.0.1")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.load(r)
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            page = r.read().decode()
+        served = []
+        for i, s in enumerate((seed, seed + 1)):
+            t0 = time.perf_counter()
+            got = np.load(io.BytesIO(_post_generate(
+                base, image, ENTRY_ACTIONS, ddim_steps=ENTRY_STEPS,
+                seed=s)))
+            wall = time.perf_counter() - t0
+            counted(f"request {i}")
+            served.append(got)
+            log("entry", json.dumps({
+                "call": f"POST /generate {i}", "seed": s, "wall_s": wall,
+                "rounds": [dict(r) for r in chat.round_times],
+                "frames": list(got.shape)}))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    diff = int(np.abs(served[0].astype(int) - frames.astype(int)).max())
+    report = {"health": health, "page_is_servers": page == server.PAGE,
+              "request0_max_diff_from_cli": diff,
+              "request0_equal": bool(np.array_equal(served[0], frames)),
+              "request1_differs": not np.array_equal(served[1], frames),
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": total, "predicted_per_call": want}
+    log("entry", json.dumps(report))
+    if health != {"status": "ok"} or not report["page_is_servers"]:
+        raise AssertionError(f"bad GET answers: {health}")
+    if any(f.shape != frames.shape for f in served):
+        raise AssertionError(f"bad served frames {[f.shape for f in served]}")
+    # the kernels have no atomics: the same seed gives the same frames
+    if not report["request0_equal"] or not report["request1_differs"]:
+        raise AssertionError(f"served frames {report}")
+    if min(total[k] for k in ENTRY_KEYS) <= 0:
+        raise AssertionError("a kernel of the path never launched")
+    del chat
+    torch.cuda.empty_cache()
+    return total
+
+
+# -- phase 10: the 576x1024 finetune through the trainer -------------------------
+
+HIRES_CONFIG = "configs/finetune_1024.yaml"
+HIRES_STEPS = 2
+HIRES_KEYS = TRAIN_KEYS + ("packed", "fused_temporal", "packed_multi")
+
+
+def tfevents_first_record_ok(path: str) -> bool:
+    """The file's first TFRecord: its length and data each followed by
+    their masked CRC-32C (utils/loggers), recomputed here."""
+    import struct
+
+    from open_pandora_tpu_torch.utils.loggers import masked_crc
+    with open(path, "rb") as f:
+        head = f.read(8)
+        (n,) = struct.unpack("<Q", head)
+        (crc_head,) = struct.unpack("<I", f.read(4))
+        data = f.read(n)
+        (crc_data,) = struct.unpack("<I", f.read(4))
+    return crc_head == masked_crc(head) and crc_data == masked_crc(data)
+
+
+def png_size(path: str) -> tuple:
+    """(height, width) from a PNG's IHDR."""
+    import struct
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path} is not a PNG")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
+
+
+def run_train_hires(device, seed: int) -> dict:
+    """The product's high-res finetune (configs/finetune_1024.yaml:
+    576x1024x16f, batch 1, the full-width WorldModel in bf16, synthetic
+    data) through the trainer for two steps with a sample grid at step 2
+    and the TensorBoard and CSV loggers: once as it is, once under
+    PANDORA_FINE_REMAT. Per run the steps' seconds, the peak memory of each
+    part (a step's data, encoders, forward and backward; its clip and
+    AdamW; the sample) and of the run, loss, gradient norm and launches
+    against the routing; the two runs' first losses agree."""
+    from open_pandora_tpu_torch.core import flags
+    from open_pandora_tpu_torch.core.config import PandoraConfig, load_config
+    from open_pandora_tpu_torch.train import trainer
+    from open_pandora_tpu_torch.train.optim import Optimizer
+
+    cfg = PandoraConfig()
+    hcfg = load_config([HIRES_CONFIG])
+    h, w = hcfg.train.height, hcfg.train.width
+    plen = llm_prompt_len(cfg)
+    sample = predicted_launches(cfg, h, w, 10, frame_chunk=1, fused=True)
+    reports, total = [], dict.fromkeys(KERNEL_KEYS, 0)
+    real_sample, real_opt = trainer.sample_grid, Optimizer.step
+    for fine in (False, True):
+        step = predicted_llm_stage_launches(cfg, "finetune", h, w, 1, plen,
+                                            fine_remat=fine)
+        want = {k: HIRES_STEPS * step[k] + sample[k] for k in KERNEL_KEYS}
+        peaks, sample_s = [], []
+
+        def peak_since(part):
+            """The peak since the last reading, named, then reset."""
+            torch.cuda.synchronize()
+            peaks.append((part, torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+
+        def opt_spy(self):
+            peak_since("forward_backward")
+            out = real_opt(self)
+            peak_since("optimizer")
+            return out
+
+        def sample_spy(*a, **kw):
+            peak_since("between")
+            t0 = time.perf_counter()
+            out = real_sample(*a, **kw)
+            peak_since("sample")
+            sample_s.append(time.perf_counter() - t0)
+            return out
+        logdir = tempfile.mkdtemp(prefix="chip_smoke_hires_")
+        trainer.sample_grid, Optimizer.step = sample_spy, opt_spy
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with flags.overridden(FINE_REMAT=fine):
+                trainer.run([
+                    "--config", HIRES_CONFIG, "--synthetic-data",
+                    "--max-steps", str(HIRES_STEPS),
+                    "--sample-every", str(HIRES_STEPS),
+                    "--logger", "tensorboard,csv",
+                    "--set", "train.log_every=1", "--device", "cuda",
+                    "--logdir", logdir, "--name", "phase10"])
+            torch.cuda.synchronize()
+            launches = read_launches()
+            loginfo = os.path.join(logdir, "phase10", "loginfo")
+            with open(os.path.join(loginfo, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            with open(os.path.join(loginfo, "metrics.csv")) as f:
+                csv_rows = f.read().strip().splitlines()[1:]
+            tb = os.path.join(loginfo, "tb")
+            events = [os.path.join(tb, n) for n in os.listdir(tb)]
+            grid = png_size(os.path.join(
+                loginfo, f"sample_step{HIRES_STEPS}.png"))
+            rep = {
+                "fine_remat": fine, "resolution": [h, w],
+                "sec_per_step": [r["sec_per_step"] for r in recs],
+                "loss": [r["loss"] for r in recs],
+                "grad_norm": [r["grad_norm"] for r in recs],
+                "peak_by_part": peaks,
+                "max_memory_allocated_steps": max(
+                    v for k, v in peaks if k != "sample"),
+                "max_memory_allocated": max(
+                    [v for _, v in peaks]
+                    + [torch.cuda.max_memory_allocated()]),
+                "sample_s": sample_s, "sample_grid_hw": grid,
+                "csv_rows": len(csv_rows), "tfevents_files": len(events),
+                "tfevents_crc_ok": (len(events) == 1
+                                    and tfevents_first_record_ok(events[0])),
+                "launches": launches, "predicted": want}
+        finally:
+            trainer.sample_grid, Optimizer.step = real_sample, real_opt
+            shutil.rmtree(logdir, ignore_errors=True)
+            torch.cuda.empty_cache()
+        log("train_hires", json.dumps(rep))
+        finite = all(np.isfinite(r[k]) for r in recs
+                     for k in ("loss", "grad_norm"))
+        if len(recs) != HIRES_STEPS or not finite:
+            raise AssertionError(f"bad metrics {recs}")
+        if grid != (h, 8 * w):
+            raise AssertionError(f"sample grid {grid}, want {(h, 8 * w)}")
+        if rep["csv_rows"] != HIRES_STEPS or not rep["tfevents_crc_ok"]:
+            raise AssertionError(f"bad logger files {rep}")
+        if launches != want:
+            raise AssertionError(f"launches {launches} != {want}")
+        reports.append(rep)
+        for k in KERNEL_KEYS:
+            total[k] += launches[k]
+    l0, l1 = reports[0]["loss"][0], reports[1]["loss"][0]
+    if not abs(l1 - l0) <= 1e-3 * abs(l0):
+        raise AssertionError(f"first losses {l0} and {l1} differ")
+    if min(total[k] for k in HIRES_KEYS) <= 0:
+        raise AssertionError("a kernel of the path never launched")
+    return total
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("chip_smoke")
     p.add_argument("--seed", type=int, default=0)
@@ -2405,6 +2737,12 @@ def main(argv=None) -> int:
     paths["world"] = run_world(device, args.seed)
     torch.cuda.empty_cache()
     paths["train_llm"] = run_train_llm(device, args.seed)
+    torch.cuda.empty_cache()
+    paths["entry"] = run_entry(device, args.seed)
+    log("entry", "WebVid data and mp4 reading and writing are not driven "
+        "here: they need OpenCV, which this machine may lack; the CPU "
+        "tests (tests/test_torch_video_data.py) cover them")
+    paths["train_hires"] = run_train_hires(device, args.seed)
 
     # launches: the main paths' runs together, and each on its own
     kernels_line = {"kernels": [

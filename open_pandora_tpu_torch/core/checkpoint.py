@@ -48,18 +48,22 @@ def save_params(ckpt_dir: str, params: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
-def restore_params(path: str, like: Dict[str, torch.Tensor]) -> None:
+def restore_params(path: str, like: Dict[str, torch.Tensor],
+                   strict: bool = True) -> None:
     """Copy the parameters saved under `path` into `like` (name -> tensor,
-    in place); the two key sets must be equal."""
+    in place); the two key sets must be equal, or with strict=False the
+    saved keys a subset of `like`'s (a run's trainable parameters restored
+    into a whole model's state dict)."""
     saved = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu",
                        weights_only=True)
-    if saved.keys() != like.keys():
+    if (saved.keys() != like.keys() if strict
+            else not saved.keys() <= like.keys()):
         missing = sorted(like.keys() - saved.keys())
         extra = sorted(saved.keys() - like.keys())
         raise KeyError(f"{path}: missing {missing[:3]}, unexpected "
                        f"{extra[:3]}")
-    for k, t in like.items():
-        t.copy_(saved[k])
+    for k, v in saved.items():
+        like[k].copy_(v)
 
 
 def find_latest_checkpoint(ckpt_dir: str) -> Optional[str]:

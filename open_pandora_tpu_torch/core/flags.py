@@ -4,7 +4,8 @@ Counterpart of open_pandora_tpu/core/flags.py, with the same API (`flag`,
 `set_flag`, `clear_flag`, `overridden`, `snapshot`, `table`) and the same
 parsing, but only the flags that select a route or an asset the port has:
 the UNet's opt-in 3x3 conv routes and their census, the switches of the
-default bf16 eval route's kernels, and the CLIP merges file. Whether a
+default bf16 eval route's kernels, the training graph's nested
+recomputation, and the CLIP merges file. Whether a
 kernel or its plain version serves a call is chosen by the tensor's device
 alone.
 
@@ -75,6 +76,12 @@ _SPECS = [
     FlagSpec("PANDORA_DISABLE_TNATIVE", "bool", False,
              "Keep the temporal transformers off the native (b, t, h*w, c) "
              "stream: transpose to (b*h*w, t, c) (models/unet3d.py)."),
+    # -- training-graph switches
+    FlagSpec("PANDORA_FINE_REMAT", "bool", False,
+             "In training, recompute each transformer block's attn1, attn2 "
+             "and feed-forward (each chunk of it) on its own in the "
+             "backward, inside the block-level checkpoint (576x1024 memory "
+             "relief; changes no value; models/unet3d.py)."),
     # -- pipeline assets
     FlagSpec("PANDORA_CLIP_BPE", "str", "",
              "Path to a CLIP BPE merges file (pipeline/tokenizers.py)."),

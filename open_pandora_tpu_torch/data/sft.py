@@ -11,9 +11,9 @@ carries a real-token mask: batches can mix chunk lengths, so pads can sit
 mid-sequence and are masked out of attention and made position-
 transparent (train/llm_step.sft_loss).
 
-Image records read their files with PIL, imported when a record needs it.
-Video records need `utils/video_io.read_video_frames`, which waits for
-slice C's video I/O; they raise until then.
+Image records read their files with PIL, video records theirs with
+OpenCV (`utils/video_io.read_video_frames`, `max_frames` sampled
+uniformly), each imported when a record needs it.
 """
 
 from __future__ import annotations
@@ -332,10 +332,15 @@ class ConversationDataset:
                 else [rec["image"]]
             images = np.stack([self._load_image(f) for f in files])
         elif "video" in rec:
-            raise NotImplementedError(
-                f"video record {rec['video']!r}: reading video frames "
-                "(utils/video_io.read_video_frames) waits for slice C's "
-                "video I/O")
+            from open_pandora_tpu_torch.pipeline.preprocess import (
+                clip_tower_preprocess)
+            from open_pandora_tpu_torch.utils.video_io import (
+                read_video_frames)
+            frames, _ = read_video_frames(
+                os.path.join(self.video_root or "", rec["video"]),
+                num_frames=self.max_frames)
+            images = np.stack([clip_tower_preprocess(f, self.clip_size)
+                               .numpy() for f in frames])
         return example_from_conversation(rec["conversations"],
                                          self.tokenizer, images=images,
                                          template=self.template)
@@ -344,14 +349,11 @@ class ConversationDataset:
                 drop_remainder: bool = False):
         """Collated batches of one signature each; the leftover groups
         follow at the end unless drop_remainder. A record that fails to
-        load is skipped (webvid.py:104 semantics); one the port cannot
-        read yet stops the run."""
+        load is skipped (webvid.py:104 semantics)."""
         groups: Dict[Tuple, List[SFTExample]] = {}
         for i in range(len(self)):
             try:
                 ex = self[i]
-            except NotImplementedError:
-                raise
             except Exception as e:  # noqa: BLE001
                 log.warning("skipping sample %d: %s", i, e)
                 continue

@@ -1,22 +1,179 @@
-"""Training data: the synthetic video dataset and the batching loader.
+"""Training data: the WebVid dataset, the synthetic video dataset and the
+batching loader.
 
-Counterpart of SyntheticVideoDataset and PrefetchLoader in
-open_pandora_tpu/data/webvid.py, with the same sample and batch contract
-(train/step.py) and the same seeds. `WebVidDataset` waits: it decodes and
-resizes with OpenCV, which the card's machine does not have. One process
-reads everything (the JAX loader's per-host sharding waits for the
-multi-device slice).
+Counterpart of open_pandora_tpu/data/webvid.py (reference data/webvid.py),
+with the same sample and batch contract (train/step.py) and the same
+seeds:
+  - `WebVidDataset`: CSV metadata (videoid, page_dir, name -> caption),
+    clips under data_dir/videos/<page_dir>/<videoid>.mp4; a random frame
+    stride in [frame_stride_min, frame_stride] with `random_fs`, scaled by
+    fps / fixed_fps with `fixed_fps`; clips that fail to open or are too
+    short are skipped (the next index is tried); shortest-side resize and
+    center crop to the resolution, frames in [-1, 1]; a random
+    conditioning frame, resized to 224 for the CLIP branch.
+  - `SyntheticVideoDataset`: random clips in the same layout.
+  - `PrefetchLoader`: per-epoch shuffled batches, loaded and collated by a
+    thread pool.
+The metadata is read with the stdlib csv module, with pandas'
+`read_csv(dtype=str)` semantics for missing values; video files are
+decoded and resized with OpenCV, imported when a clip is read (the card's
+machine has none). One process reads everything (the JAX loader's
+per-host sharding waits for the multi-device slice).
 """
 
 from __future__ import annotations
 
 import collections
+import csv
+import logging
+import os
+import random
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from open_pandora_tpu_torch.pipeline.tokenizers import load_clip_tokenizer
+from open_pandora_tpu_torch.utils.video_io import (import_cv2, probe_video,
+                                                   read_video_frames)
+
+log = logging.getLogger("open_pandora_tpu_torch.data")
+
+# the strings pandas' read_csv reads as missing by default
+NA_VALUES = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
+
+
+def read_metadata(path: str) -> List[Dict[str, Optional[str]]]:
+    """The CSV's rows as {column: str or None (missing)}; blank lines are
+    skipped, short rows padded with None."""
+    with open(path, newline="", encoding="utf-8-sig") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        rows = []
+        for fields in reader:
+            if not fields:
+                continue
+            fields = fields + [None] * (len(header) - len(fields))
+            rows.append({k: None if v is None or v in NA_VALUES else v
+                         for k, v in zip(header, fields)})
+    return rows
+
+
+def resize_center_crop(frames: np.ndarray, height: int,
+                       width: int) -> np.ndarray:
+    """(t, h, w, 3) uint8 -> (t, height, width, 3) uint8: shortest-side
+    resize (area filter when shrinking, bilinear when growing), then
+    center crop."""
+    cv2 = import_cv2()
+    _, h, w, _ = frames.shape
+    scale = max(height / h, width / w)
+    nh, nw = round(h * scale), round(w * scale)
+    interp = cv2.INTER_AREA if scale < 1 else cv2.INTER_LINEAR
+    out = np.stack([cv2.resize(f, (nw, nh), interpolation=interp)
+                    for f in frames])
+    top, left = (nh - height) // 2, (nw - width) // 2
+    return out[:, top: top + height, left: left + width]
+
+
+class WebVidDataset:
+    """WebVid clips; `random.Random(seed)` draws the stride, the start
+    frame and the conditioning frame, in the JAX package's order."""
+
+    def __init__(self, meta_path: str, data_dir: str,
+                 video_length: int = 16,
+                 resolution: Sequence[int] = (320, 512),
+                 frame_stride: int = 6, frame_stride_min: int = 1,
+                 random_fs: bool = False, fixed_fps: Optional[int] = None,
+                 fps_max: Optional[int] = None, rand_cond_frame: bool = True,
+                 subsample: Optional[int] = None, seed: int = 0):
+        self.data_dir = data_dir
+        self.video_length = video_length
+        self.resolution = tuple(resolution)
+        self.frame_stride = frame_stride
+        self.frame_stride_min = frame_stride_min
+        self.random_fs = random_fs
+        self.fixed_fps = fixed_fps
+        self.fps_max = fps_max
+        self.rand_cond_frame = rand_cond_frame
+        self.rng = random.Random(seed)
+
+        rows = read_metadata(meta_path)
+        if subsample:   # pandas' DataFrame.sample(n, random_state=0)
+            pick = np.random.RandomState(0).choice(len(rows), size=subsample,
+                                                   replace=False)
+            rows = [rows[i] for i in pick]
+        for r in rows:
+            r["caption"] = r["name"]
+        self.metadata = [r for r in rows if all(
+            r[k] is not None for k in ("caption", "page_dir", "videoid"))]
+        log.info(">>> %d data samples loaded.", len(self.metadata))
+
+    def __len__(self) -> int:
+        return len(self.metadata)
+
+    def _video_path(self, row) -> str:
+        return os.path.join(self.data_dir, "videos", row["page_dir"],
+                            f"{row['videoid']}.mp4")
+
+    def __getitem__(self, index: int) -> Dict:
+        fs = (self.rng.randint(self.frame_stride_min, self.frame_stride)
+              if self.random_fs else self.frame_stride)
+        while True:
+            index = index % len(self.metadata)
+            row = self.metadata[index]
+            path = self._video_path(row)
+            try:
+                frame_num, fps_ori = probe_video(path)
+            except Exception as e:  # noqa: BLE001
+                log.warning("Load video failed! path = %s (%s)", path, e)
+                index += 1
+                continue
+            if frame_num < self.video_length:
+                log.warning("video length (%d) < target (%d): %s",
+                            frame_num, self.video_length, path)
+                index += 1
+                continue
+            stride = fs
+            if self.fixed_fps is not None:
+                stride = int(stride * (fps_ori / self.fixed_fps))
+            stride = max(stride, 1)
+            required = stride * (self.video_length - 1) + 1
+            if frame_num < required:
+                if self.fixed_fps is not None and frame_num < required * 0.5:
+                    index += 1
+                    continue
+                stride = frame_num // self.video_length
+                required = stride * (self.video_length - 1) + 1
+            rand_range = frame_num - required
+            start = self.rng.randint(0, rand_range) if rand_range > 0 else 0
+            indices = [start + stride * i for i in range(self.video_length)]
+            try:
+                frames, _ = read_video_frames(path, indices=indices)
+                break
+            except Exception as e:  # noqa: BLE001
+                log.warning("Get frames failed! path = %s (%s)", path, e)
+                index += 1
+                continue
+
+        frames = resize_center_crop(frames, *self.resolution)
+        cond_idx = (self.rng.randint(0, self.video_length - 1)
+                    if self.rand_cond_frame else 0)
+        cond224 = import_cv2().resize(frames[cond_idx], (224, 224))
+        video = frames.astype(np.float32) / 127.5 - 1.0
+        fps_clip = int(fps_ori // stride)
+        if self.fps_max is not None:
+            fps_clip = min(fps_clip, self.fps_max)
+        return {
+            "video": video,                                    # (T,H,W,3)
+            "cond_frames": video[cond_idx: cond_idx + 1],      # (1,H,W,3)
+            "cond_image": cond224.astype(np.float32) / 255.0,  # (224,224,3)
+            "caption": str(row["caption"]),
+            "fps": fps_clip,
+            "frame_stride": stride,
+        }
 
 
 class SyntheticVideoDataset:

@@ -180,24 +180,9 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    import cv2
-    from PIL import Image
-
-    from open_pandora_tpu_torch.utils.video_io import frames_to_uint8
-
-    def write_video(path, frames, fps):
-        """frames (t, h, w, 3) uint8 RGB -> mp4 (h264, else mp4v)."""
-        h, w = frames.shape[1:3]
-        for codec in ("avc1", "mp4v"):
-            writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*codec),
-                                     fps, (w, h))
-            if writer.isOpened():
-                for fr in frames:
-                    writer.write(cv2.cvtColor(fr, cv2.COLOR_RGB2BGR))
-                writer.release()
-                return
-            writer.release()
-        raise RuntimeError(f"no usable mp4 codec for {path}")
+    from open_pandora_tpu_torch.pipeline.cli import decode_image
+    from open_pandora_tpu_torch.utils.video_io import (frames_to_uint8,
+                                                       write_video)
 
     device = torch.device(args.device)
     if args.debug:
@@ -222,8 +207,7 @@ def main(argv=None) -> int:
     os.makedirs(args.save_dir, exist_ok=True)
     t0 = time.time()
     for img_name, prompt in items:
-        with Image.open(os.path.join(args.prompt_dir, img_name)) as im:
-            image = np.asarray(im.convert("RGB"))
+        image = decode_image(os.path.join(args.prompt_dir, img_name))
         for s in range(args.n_samples):
             video = synthesize(
                 model, image, prompt, height=height, width=width,

@@ -5,6 +5,7 @@ Run from the repository root:
 
     python -m open_pandora_tpu_torch.eval.profile_step [--seed 0] [--calls 2]
         [--flags ENABLE_PCONV2[,...]] [--head-channels 80]
+        [--train-hw 576x1024]
 
 Builds the full-width PandoraConfig() in bf16 with random weights and times
 the three parts of `eval.inference.synthesize` at 320x512x16f:
@@ -40,6 +41,12 @@ profiles only the CFG UNet eval, at 320x512 and then on a 72x128 latent
 (core/flags.py; the part's name and its `flags` key say which), in the
 order default, flagged, flagged, default: an A/B of the opt-in conv routes
 against the library convolution on one card.
+
+With --train-hw HxW it profiles only the train_step, at that frame size
+(576x1024 is configs/finetune_1024.yaml's; chip_smoke.py phase 10 runs
+that config's finetune through the trainer), then runs one more step
+reading the peak memory at every UNet layer's entry (`peak_by_layer`):
+the intervals between two entries whose peak is highest.
 
 With --head-channels N it builds the UNet with heads N wide
 (`num_head_channels`; 80 is chip_smoke.py's phase 5b, whose attn2 takes the
@@ -153,6 +160,8 @@ def main(argv=None) -> int:
     p.add_argument("--head-channels", type=int, default=None,
                    help="profile only the 320x512 UNet eval of a UNet with "
                    "heads this wide")
+    p.add_argument("--train-hw", default=None,
+                   help="HxW: profile only the train step at this size")
     args = p.parse_args(argv)
     on = {f if f.startswith("PANDORA_") else "PANDORA_" + f: True
           for f in args.flags.split(",") if f}
@@ -177,6 +186,10 @@ def main(argv=None) -> int:
     img = torch.tensor(rng.integers(0, 256, (360, 640, 3), dtype=np.uint8),
                        device=dev).float() / 255.0
     tokenizer = load_clip_tokenizer()
+    if args.train_hw:
+        h, w = map(int, args.train_hw.split("x"))
+        profile_train(cfg, model, dev, args, (h, w))
+        return 0
 
     def conditioning():     # as in synthesize, from the prompt string on
         tokens = torch.tensor([tokenizer(
@@ -232,25 +245,81 @@ def main(argv=None) -> int:
         for name, fn in parts:
             print(json.dumps(profile_part(name, fn, args.calls)), flush=True)
 
-    tcfg = cfg.train
-    state = TrainState.create(model, "dynamicrafter", tcfg)
-    step = make_finetune_step(model, tcfg)
-    t, (h, w), c = tcfg.video_length, (tcfg.height, tcfg.width), \
-        cfg.clip_vision.image_size
-    video = rng.uniform(-1, 1, (1, t, h, w, 3)).astype(np.float32)
-    batch = {"video": video, "cond_frames": video[:, :1],
-             "cond_images": rng.random((1, c, c, 3), np.float32),
-             "text_tokens": np.asarray([tokenizer(
-                 "synthetic clip 0", cfg.clip_text.context_length)]),
-             "fps": np.asarray([8])}
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
-    print(json.dumps(profile_part(
-        "train_step", lambda: step(state, batch, generator=gen),
-        args.calls)), flush=True)
-    del state, step, model
+    profile_train(cfg, model, dev, args, (cfg.train.height, cfg.train.width))
+    del model
     torch.cuda.empty_cache()
     profile_world(cfg, dev, args)
     return 0
+
+
+def profile_train(cfg: PandoraConfig, model, dev, args, hw) -> None:
+    """One `dynamicrafter` finetune step at batch 1 on frames of size hw
+    (part "train_step", with "_HxW" beyond the config's 320x512)."""
+    tcfg = cfg.train
+    state = TrainState.create(model, "dynamicrafter", tcfg)
+    step = make_finetune_step(model, tcfg)
+    rng = np.random.default_rng(args.seed)
+    t, c = tcfg.video_length, cfg.clip_vision.image_size
+    video = rng.uniform(-1, 1, (1, t, *hw, 3)).astype(np.float32)
+    batch = {"video": video, "cond_frames": video[:, :1],
+             "cond_images": rng.random((1, c, c, 3), np.float32),
+             "text_tokens": np.asarray([load_clip_tokenizer()(
+                 "synthetic clip 0", cfg.clip_text.context_length)]),
+             "fps": np.asarray([8])}
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    name = ("train_step" if tuple(hw) == (tcfg.height, tcfg.width)
+            else "train_step_{}x{}".format(*hw))
+    torch.cuda.reset_peak_memory_stats()
+    rec = profile_part(name, lambda: step(state, batch, generator=gen),
+                       args.calls)
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(json.dumps(rec), flush=True)
+    if tuple(hw) != (tcfg.height, tcfg.width):
+        print(json.dumps({"part": name, "peak_by_layer": peak_by_layer(
+            model.model.diffusion_model,
+            lambda: step(state, batch, generator=gen))}), flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+
+
+def peak_by_layer(unet, fn, top: int = 8) -> list:
+    """Run fn (a training step) with `max_memory_allocated` read and reset
+    at the entry of every layer of the UNet's blocks and at the start of
+    the backward: [phase, the layer the interval starts at, the one it
+    ends at, its peak in bytes] for the `top` highest intervals. In the
+    backward a layer is entered when its checkpoint recomputes it, so an
+    interval holds its first layer's recompute and gradient."""
+    names = {id(m): n for n, m in unet.named_modules()}
+    phase, last, readings = ["forward"], ["start"], []
+
+    def read(tag):
+        torch.cuda.synchronize()
+        readings.append([phase[0], last[0], tag,
+                         torch.cuda.max_memory_allocated()])
+        torch.cuda.reset_peak_memory_stats()
+        last[0] = tag
+
+    hooks = [layer.register_forward_pre_hook(
+        lambda m, args: read(names[id(m)]))
+        for block in (*unet.input_blocks, unet.middle_block,
+                      *unet.output_blocks) for layer in block]
+    real_backward = torch.Tensor.backward
+
+    def backward(self, *a, **kw):
+        read("loss")
+        phase[0] = "backward"
+        return real_backward(self, *a, **kw)
+    torch.Tensor.backward = backward
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        read("end")
+    finally:
+        torch.Tensor.backward = real_backward
+        for h in hooks:
+            h.remove()
+    return sorted(readings, key=lambda r: -r[3])[:top]
 
 
 def profile_world(cfg: PandoraConfig, dev, args) -> None:

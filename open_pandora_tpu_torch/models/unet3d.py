@@ -31,9 +31,12 @@ unfused route adds dropout at the JAX sites (attention out-projections, the
 GEGLU feed-forward and the ResBlocks at `cfg.dropout`, the temporal conv
 blocks at 0.1) and, with `cfg.use_checkpoint`, recomputes every ResBlock,
 SpatialTransformer and TemporalTransformer in the backward
-(torch.utils.checkpoint, the JAX package's nn.remat). Dropout draws from
-the global RNG, whose state the checkpoint saves and restores, so the
-recomputed masks are the forward's.
+(torch.utils.checkpoint, the JAX package's nn.remat), and under
+PANDORA_FINE_REMAT also each transformer block's attn1, attn2 and
+feed-forward on its own inside that. Dropout draws from the global RNG,
+whose state the checkpoint saves and restores, so the recomputed masks are
+the forward's. In either mode the feed-forward runs in chunks of its
+leading axis where its intermediate exceeds 256M elements (576x1024).
 Module and parameter names follow the reference state dict
 (`input_blocks.1.0.in_layers.0.weight`, `...transformer_blocks.0.attn2.to_k_ip`,
 `temopral_conv` with the reference's spelling); both routes read the same
@@ -42,6 +45,7 @@ parameters.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -171,15 +175,52 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward: net.0 (GEGLU), net.1 (dropout), net.2 (Linear)."""
+    """GEGLU feed-forward: net.0 (GEGLU), net.1 (dropout), net.2 (Linear).
+
+    Where the GEGLU intermediate (the tokens times 2 * mult * dim) exceeds
+    CHUNK_THRESHOLD elements, the leading axis is processed in chunks that
+    share the weights: the count doubles from 2 while a chunk holds more
+    than CHUNK_TARGET elements and the axis stays divisible, and an axis
+    that 2 does not divide is not chunked (JAX models/unet3d.py:239-271).
+    At 576x1024 the level-0 sites take 4 chunks in training and 8 in the
+    CFG eval. With `remat` each chunk is recomputed in the backward on its
+    own (the whole feed-forward when it is not chunked), so the backward
+    holds one chunk's intermediate at a time."""
+
+    CHUNK_THRESHOLD = 256 * 2 ** 20
+    CHUNK_TARGET = 128 * 2 ** 20
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(dropout),
                                   nn.Linear(dim * mult, dim)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _ff(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[1](self.net[0](x)))
+
+    def chunks(self, shape) -> int:
+        """How many pieces the leading axis of an input of `shape` is
+        processed in."""
+        n = shape[0]
+        elems = math.prod(shape[:-1]) * self.net[2].in_features * 2
+        if elems <= self.CHUNK_THRESHOLD or n % 2:
+            return 1
+        chunks = 2
+        while elems // chunks > self.CHUNK_TARGET and n % (chunks * 2) == 0:
+            chunks *= 2
+        return chunks
+
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        def ff(part):
+            if remat:
+                return torch.utils.checkpoint.checkpoint(
+                    self._ff, part, use_reentrant=False)
+            return self._ff(part)
+
+        chunks = self.chunks(x.shape)
+        if chunks == 1:
+            return ff(x)
+        return torch.cat([ff(part) for part in x.chunk(chunks)], dim=0)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -221,10 +262,23 @@ class BasicTransformerBlock(nn.Module):
                     x, attn.to_q.weight, attn.to_k.weight, attn.to_v.weight,
                     attn.to_out[0].weight, attn.to_out[0].bias, norm.weight,
                     norm.bias, heads=attn.heads, eps=norm.eps)
-        else:
-            x = x + self.attn1(self.norm1(x), None, mask=self_mask)
-            x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+            return x + self.ff(self.norm3(x))
+        # PANDORA_FINE_REMAT (training): attn1, attn2 and the feed-forward
+        # each recomputed in the backward on its own, inside the block-level
+        # checkpoint, so that a block's backward never holds the three
+        # modules' temporaries together (JAX models/unet3d.py:322-354)
+        fine = (self.training and torch.is_grad_enabled()
+                and flags.flag("PANDORA_FINE_REMAT"))
+
+        def call(module, *args):
+            if fine:
+                return torch.utils.checkpoint.checkpoint(
+                    module, *args, use_reentrant=False)
+            return module(*args)
+
+        x = x + call(self.attn1, self.norm1(x), None, self_mask)
+        x = x + call(self.attn2, self.norm2(x), context)
+        return x + self.ff(self.norm3(x), remat=fine)
 
 
 class SpatialTransformer(nn.Module):

@@ -15,17 +15,13 @@ Images are NumPy arrays (H, W, 3), uint8 or float in [0, 1]; frames come
 back as uint8 (T, H, W, 3). The sampler is a host loop, so any number of
 DDIM steps is one call.
 
-Smoke run with random weights and a random image (no checkpoint loader for
-the composite yet):
-
-    python -m open_pandora_tpu_torch.pipeline.chat_wm --debug --device cpu
+`save_video` writes the session as an mp4 (OpenCV, imported then). The
+user's entry points are pipeline/cli.py and pipeline/server.py.
 """
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
-import sys
 import time
 from typing import List, Optional
 
@@ -45,7 +41,8 @@ from open_pandora_tpu_torch.pipeline.preprocess import (
     clip_resampler_preprocess, clip_tower_preprocess, diffusion_preprocess)
 from open_pandora_tpu_torch.pipeline.tokenizers import load_tokenizer
 from open_pandora_tpu_torch.utils.video_io import (concat_rounds,
-                                                   frames_to_uint8)
+                                                   frames_to_uint8,
+                                                   write_video)
 
 
 def build_world_model(cfg: PandoraConfig, *, device="cuda",
@@ -202,6 +199,16 @@ class ChatWM:
             self.generate_video_next_round(t, **kw)
         return concat_rounds(self.round_videos)
 
+    # -- output -------------------------------------------------------------
+
+    def save_video(self, path: str, frames: Optional[np.ndarray] = None,
+                   fps: int = 8) -> str:
+        """Write `frames` (uint8 (T, H, W, 3)), by default the session's
+        rounds with their overlaps trimmed, as an mp4 (OpenCV)."""
+        if frames is None:
+            frames = concat_rounds(self.round_videos)
+        return write_video(path, frames, fps=fps)
+
 
 def debug_world_config(t: int = 4) -> PandoraConfig:
     """The tiny configuration of the --debug smoke run: 32x32 frames, 56x56
@@ -221,42 +228,3 @@ def debug_world_config(t: int = 4) -> PandoraConfig:
         connector=ConnectorConfig(llm_hidden=64, image_prefix_length=4,
                                   qformer_proj_dim=32, proj_out_dim=64))
 
-
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser("chat-wm-smoke")
-    p.add_argument("--device", default="cuda")
-    p.add_argument("--debug", action="store_true",
-                   help="tiny config, fp32, 32x32 frames")
-    p.add_argument("--height", type=int, default=320)
-    p.add_argument("--width", type=int, default=512)
-    p.add_argument("--ddim-steps", type=int, default=50)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--action", action="append", default=None,
-                   help="one per round")
-    args = p.parse_args(argv)
-
-    device = torch.device(args.device)
-    if args.debug:
-        cfg, dtype, hw = debug_world_config(), torch.float32, (32, 32)
-        args.ddim_steps = min(args.ddim_steps, 2)
-    else:
-        cfg, dtype, hw = (PandoraConfig(), torch.bfloat16,
-                          (args.height, args.width))
-    print("[chatwm] NO CHECKPOINT: random weights and a random image "
-          "(smoke run)", flush=True)
-    wm = build_world_model(
-        cfg, device=device, dtype=dtype,
-        generator=torch.Generator(device=device).manual_seed(args.seed))
-    image = np.random.default_rng(args.seed).integers(
-        0, 256, (hw[0] + 8, hw[1] + 16, 3), dtype=np.uint8)
-    texts = args.action or ["the camera moves forward", "turn left"]
-    chat = ChatWM(wm, height=hw[0], width=hw[1])
-    video = chat.generate_video_multiround(
-        image, texts, ddim_steps=args.ddim_steps, seed=args.seed)
-    print(f"[chatwm] {len(texts)} rounds -> frames {video.shape} "
-          f"{video.dtype}, min {video.min()} max {video.max()}", flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

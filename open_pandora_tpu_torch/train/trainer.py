@@ -5,28 +5,36 @@ and `llm_sft` (ChatUniVi's LLM SFT, full or LoRA) stages, on one device.
 
 Counterpart of open_pandora_tpu/train/trainer.py (reference
 trainer.py:24-105, utils/utils_train.py): config merge, workspace, model
-and params in the config's dtype policy, the stage's step, metrics.jsonl,
-checkpoints of the trainable parameters every ckpt_every steps and at the
-end, auto-resume.
+and params in the config's dtype policy, the stage's step, metrics
+(metrics.jsonl and the `--logger` backends), a sample grid every
+`--sample-every` steps, checkpoints of the trainable parameters every
+ckpt_every steps and at the end, auto-resume.
 
 Usage:
-  python -m open_pandora_tpu_torch.train.trainer --synthetic-data \\
+  python -m open_pandora_tpu_torch.train.trainer \\
+      [--synthetic-data | --meta-path meta.csv --data-dir DIR] \\
       --set train.stage=STAGE --max-steps N [--name run1]
       [--logdir ./runs] [--config cfg.yaml]... [--set key.path=value]...
       [--ckpt model.ckpt] [--tiny] [--auto-resume] [--device cpu]
+      [--sample-every N] [--logger tensorboard,csv]
       [--chat-path chat.json]... [--image-root DIR] [--video-root DIR]
 
 It runs on the CUDA card unless `--device cpu` is given. `--tiny` takes the
 port's small config (pipeline/chat_wm.debug_world_config, 32x32 frames).
-The alignment, finetune and llm_sft stages build a WorldModel with random
-weights (or `--ckpt`, the released composite) and tokenize with the LLaMA
-tokenizer (the hash fallback without one). `llm_sft` reads conversation
-records from `--chat-path` (images under `--image-root`), or without one
+Clips come from WebVid (`--meta-path`, clips under `--data-dir`; OpenCV
+decodes them, so not on the card's machine), with the config's
+frame_stride, fixed_fps and seed, or are synthetic (`--synthetic-data`, or
+no `--meta-path`). The alignment, finetune and llm_sft stages build a
+WorldModel with random weights (or `--ckpt`, the released composite) and
+tokenize with the LLaMA tokenizer (the hash fallback without one).
+`llm_sft` reads conversation records from `--chat-path` (images under
+`--image-root`, videos under `--video-root`), or without one
 `synthetic_conversations(8 * batch)`; with `llama.lora_rank > 0` only the
-adapters and mm_projector train. Waiting for later slices: WebVid data
-(OpenCV), video SFT records (slice C's video I/O), multi-device runs (slice
-E; a config's `mesh` section may only ask for one device) and
-`--sample-every` (utils/image_grid).
+adapters and mm_projector train. In the finetune and dynamicrafter stages
+`--sample-every N` samples a clip every N steps (DDIM-10 from the batch's
+first conditioning image and frames, the empty prompt, eval mode) into
+loginfo/sample_step<n>.png. Waiting for slice E: multi-device runs (a
+config's `mesh` section may only ask for one device).
 """
 
 from __future__ import annotations
@@ -52,8 +60,6 @@ UNREAD = {
     ("mesh", "data_axis"): "it waits for slice E (multi-GPU)",
     ("mesh", "model_axis"): "it waits for slice E (multi-GPU)",
     ("mesh", "shard_opt_state"): "it waits for slice E (multi-GPU)",
-    ("train", "frame_stride"): "it waits for WebVid data (OpenCV)",
-    ("train", "fixed_fps"): "it waits for WebVid data (OpenCV)",
     ("train", "cond_frames"): "the JAX package's trainer does not read it "
                               "either",
 }
@@ -72,10 +78,20 @@ def build_parser():
                         "checkpoint (random weights without it)")
     p.add_argument("--auto-resume", action="store_true")
     p.add_argument("--synthetic-data", action="store_true")
+    p.add_argument("--meta-path", default=None,
+                   help="WebVid metadata CSV (videoid, page_dir, name)")
+    p.add_argument("--data-dir", default=None,
+                   help="WebVid root: clips under videos/<page_dir>/")
     p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--sample-every", type=int, default=0,
+                   help="every N steps, sample a clip into a PNG grid "
+                        "(finetune and dynamicrafter stages)")
     p.add_argument("--tiny", action="store_true",
                    help="the small debug config (smoke mode)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--logger", default="tensorboard",
+                   help="comma list of metric backends besides "
+                        "metrics.jsonl: tensorboard, csv, wandb, none")
     p.add_argument("--chat-path", action="append", default=[],
                    help="conversation JSON file(s) for train.stage=llm_sft "
                         "(ChatUniVi LazySupervisedDataset records)")
@@ -115,9 +131,6 @@ def run(argv=None):
     stage = tcfg.stage
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; choose one of {STAGES}")
-    if stage != "llm_sft" and not args.synthetic_data:
-        raise NotImplementedError("WebVid data waits for OpenCV on the "
-                                  "card's machine; pass --synthetic-data")
     if cfg.mesh.model_parallel != 1 or cfg.mesh.data_parallel not in (-1, 1):
         raise NotImplementedError(f"mesh {cfg.mesh}: more than one device "
                                   "waits for slice E (multi-GPU)")
@@ -151,7 +164,7 @@ def run(argv=None):
             state.step = int(os.path.basename(latest)[5:])
 
     loader = _loader(args, cfg, tcfg, stage, (height, width), video_len)
-    metrics = MetricsLogger(ws["loginfo"])
+    metrics = MetricsLogger(ws["loginfo"], backends=args.logger)
     gen = torch.Generator(device=device).manual_seed(tcfg.seed)
     t_last, step_last = time.perf_counter(), state.step
     epoch = 0
@@ -167,6 +180,12 @@ def run(argv=None):
                     t_last, step_last = now, state.step
                     log.info("%s", {"step": state.step, **rec})
                     metrics.log(state.step, rec)
+                if (args.sample_every and state.step % args.sample_every == 0
+                        and stage in ("finetune", "dynamicrafter")):
+                    path = sample_grid(
+                        state.model, batch, cfg, os.path.join(
+                            ws["loginfo"], f"sample_step{state.step}.png"))
+                    log.info("sample grid -> %s", path)
                 if state.step % tcfg.ckpt_every == 0:
                     save_params(ws["checkpoints"], state.trainable,
                                 state.step)
@@ -200,12 +219,43 @@ def _stage_step(model, tcfg, stage: str):
     return TrainState.create(model, key, tcfg), step_fn
 
 
+@torch.no_grad()
+def sample_grid(model, batch, cfg, path: str) -> str:
+    """A DDIM-10 clip from the batch's first conditioning image and frames
+    with the empty prompt (generator seeded 0), in eval mode (the fused
+    route on the card), decoded and saved as a PNG grid (JAX
+    trainer.py:266-285); every module's mode is restored after (the
+    stages train some submodules and keep the rest in eval mode)."""
+    from open_pandora_tpu_torch.models.encoders import empty_prompt_tokens
+    from open_pandora_tpu_torch.models.world_model import WorldModel
+    from open_pandora_tpu_torch.utils.image_grid import save_sample_grid
+
+    dc = model.diffusion if isinstance(model, WorldModel) else model
+    modes = [(m, m.training) for m in model.modules()]
+    model.eval()
+    try:
+        text_ctx = dc.encode_text(empty_prompt_tokens(
+            1, cfg.clip_text.context_length, device=dc.device))
+        z = dc.image_guided_synthesis(
+            text_context=text_ctx,
+            cond_images=torch.as_tensor(batch["cond_images"][:1]),
+            cond_frames=torch.as_tensor(batch["cond_frames"][:1]),
+            ddim_steps=10, guidance_scale=cfg.sampler.guidance_scale,
+            generator=torch.Generator(device=dc.device).manual_seed(0))
+        video = dc.decode(z).float().cpu().numpy()
+    finally:
+        for m, training in modes:
+            m.training = training
+    return save_sample_grid(path, video)
+
+
 def _loader(args, cfg, tcfg, stage: str, hw, video_len: int):
     """The stage's batches (JAX trainer.py:204-239): collated conversations
-    for llm_sft, synthetic clips otherwise (with LLaMA caption ids in the
-    LLM stages)."""
+    for llm_sft; otherwise WebVid clips from `--meta-path`, or synthetic
+    ones (with LLaMA caption ids in the LLM stages)."""
     from open_pandora_tpu_torch.data.webvid import (PrefetchLoader,
-                                                    SyntheticVideoDataset)
+                                                    SyntheticVideoDataset,
+                                                    WebVidDataset)
     from open_pandora_tpu_torch.pipeline.tokenizers import load_tokenizer
 
     batch = tcfg.batch_size_per_device
@@ -224,12 +274,18 @@ def _loader(args, cfg, tcfg, stage: str, hw, video_len: int):
                 return ds.batches(batch, cfg, bucket=32)
         return SFTLoader()
     llm = stage in LLM_STAGES
-    # in the LLM stages cond_images is also the CLIP tower's input
-    clip_size = (cfg.clip_tower if llm else cfg.clip_vision).image_size
+    if args.synthetic_data or not args.meta_path:
+        # in the LLM stages cond_images is also the CLIP tower's input
+        clip_size = (cfg.clip_tower if llm else cfg.clip_vision).image_size
+        ds = SyntheticVideoDataset(video_length=video_len, resolution=hw,
+                                   clip_size=clip_size)
+    else:
+        ds = WebVidDataset(args.meta_path, args.data_dir,
+                           video_length=video_len, resolution=hw,
+                           frame_stride=tcfg.frame_stride,
+                           fixed_fps=tcfg.fixed_fps, seed=tcfg.seed)
     return PrefetchLoader(
-        SyntheticVideoDataset(video_length=video_len, resolution=hw,
-                              clip_size=clip_size),
-        batch, text_len=cfg.clip_text.context_length,
+        ds, batch, text_len=cfg.clip_text.context_length,
         llm_tokenizer=load_tokenizer() if llm else None)
 
 

@@ -245,15 +245,21 @@ NEW_MODULES = ["models.clip_tower", "models.cluster", "models.llama",
 
 
 def test_debug_run_without_jax():
-    """Every module of the slice imports, and a two-round debug session runs
-    on the CPU, in a process where `jax` and `open_pandora_tpu` cannot be
-    imported."""
+    """Every module of the slice imports, and a two-round debug session
+    (pipeline/cli.py's run on a random image) runs on the CPU, in a process
+    where `jax` and `open_pandora_tpu` cannot be imported."""
     imports = "; ".join(f"import open_pandora_tpu_torch.{m}"
                         for m in NEW_MODULES)
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['open_pandora_tpu'] = None; " + imports + "; "
-            "from open_pandora_tpu_torch.pipeline.chat_wm import main; "
-            "assert main(['--debug', '--device', 'cpu']) == 0; "
+            "import numpy as np; "
+            "from open_pandora_tpu_torch.pipeline import cli; "
+            "a = cli.build_parser().parse_args(['--image', '', '--action', "
+            "'go', '--action', 'turn', '--debug', '--device', 'cpu']); "
+            "image = np.random.default_rng(0).integers(0, 256, (40, 48, 3), "
+            "dtype=np.uint8); "
+            "v = cli.run(cli.build_chat(a), image, a); "
+            "print(f'2 rounds -> frames {v.shape} {v.dtype}'); "
             "assert not [m for m in sys.modules if sys.modules[m] is not None"
             " and m.split('.')[0] in ('jax', 'open_pandora_tpu')]")
     done = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
