@@ -86,6 +86,18 @@ Phases, each printing its own lines and raising on failure:
               against the routing; the sample grid's PNG size, the CSV's
               rows and the event file's first record's CRCs checked, the
               two runs' first losses within 1e-3
+ 11. multi    the parallel layer in a process of its own that opens a
+              world-size-1 NCCL group through parallel.launch
+              .init_distributed: on the full-width PandoraConfig() in bf16,
+              sharded_synthesis at 320x512 DDIM-4 and sharded_decode, the
+              dynamicrafter step at 320x512 under configs/finetune.yaml's
+              mesh (DDP + ZeRO-2, then with FSDP) and train.trainer.run
+              of it for 2 steps (metrics and checkpoint checked),
+              the LLaMA-7B prefill under tensor parallelism (1024 rows)
+              and sp_llama_prefill on phase 7's round-2 prompt (384 rows);
+              each held to its one-device call of the same seed (max|d|),
+              with wall seconds and peak memory beside the one-device
+              call's, and launches against it
 The last three lines are the card's name and power limit, the kernels'
 JSON summary and the run's JSON result.
 """
@@ -638,6 +650,12 @@ def check_packed(summary: dict, device, gen) -> None:
             def library():
                 return F.scaled_dot_product_attention(qs, ks, vs)
 
+        timed = None
+        if len(ms) == 2:   # text + image streams: row 8's eager chain
+            views = [t.view(B, -1, H, D) for t in [q] + [
+                t for kv in streams for t in kv]]
+            timed = {"eager_ms": lambda: dual_cross_eager(*views, g)}
+
         def plain(q, *kv):
             return packed_attention_plain(q, list(zip(kv[::2], kv[1::2])), g,
                                           heads=H)
@@ -650,8 +668,8 @@ def check_packed(summary: dict, device, gen) -> None:
                lambda: plain(q, *flat),
                lambda: plain(q.float(), *[t.float() for t in flat]),
                ((2 * N + 2 * sum(ms)) * B * hd * 2,
-                4 * B * N * sum(ms) * hd, dt), library)
-        del q, streams, flat, library
+                4 * B * N * sum(ms) * hd, dt), library, timed)
+        del q, streams, flat, library, timed
 
 
 def dual_cross_eager(q, kt, vt, ki, vi, gate):
@@ -2045,7 +2063,9 @@ def predicted_round(cfg, height: int, width: int, steps: int,
             for k in KERNEL_KEYS}
 
 
-def run_world(device, seed: int) -> dict:
+def run_world(device, seed: int, prompts: list = None) -> dict:
+    """Phase 7; with a `prompts` list, the round-2 prompt's LLaMA input
+    embeddings (1, 384, 4096) are appended to it (on the CPU)."""
     from open_pandora_tpu_torch.core.config import PandoraConfig
     from open_pandora_tpu_torch.pipeline.chat_wm import (ChatWM,
                                                          build_world_model)
@@ -2076,6 +2096,13 @@ def run_world(device, seed: int) -> dict:
         seen.append(kw["cond_frames"])
         return real_streams(**kw)
     wm.diffusion.synthesis_streams = streams_spy
+    real_trunk = wm.llama.trunk
+
+    def trunk_spy(embeds, *a, **kw):
+        if prompts is not None and embeds.shape[1] == 384:
+            prompts.append(embeds.detach().cpu())
+        return real_trunk(embeds, *a, **kw)
+    wm.llama.trunk = trunk_spy
     torch.cuda.reset_peak_memory_stats()
     frames, launches, total = [], [], dict.fromkeys(KERNEL_KEYS, 0)
     for r, text in enumerate(WORLD_TEXTS):
@@ -2298,10 +2325,10 @@ def run_train_llm(device, seed: int) -> dict:
     # gradient at each step
     prefix_norms, real_stage_step = [], trainer._stage_step
 
-    def stage_step_spy(model, tcfg, stage):
+    def stage_step_spy(model, *args):
         model.connector.image_prefix.weight.register_post_accumulate_grad_hook(
             lambda p: prefix_norms.append(p.grad.float().norm().item()))
-        return real_stage_step(model, tcfg, stage)
+        return real_stage_step(model, *args)
     logdir = tempfile.mkdtemp(prefix="chip_smoke_train_llm_")
     trainer._stage_step = stage_step_spy
     try:
@@ -2687,11 +2714,369 @@ def run_train_hires(device, seed: int) -> dict:
     return total
 
 
+# -- phase 11: the parallel layer over a world-size-1 NCCL group -------------
+
+MULTI_KEYS = ("flash", "flash_bwd", "small", "small_bwd", "packed",
+              "fused_temporal", "group_norm")
+MULTI_STEPS = 4
+TP_ROWS = 1024      # the LLaMA prefill under TP: on the flash route (>= 512)
+# held to the one-device call: the forward paths by 1e-3 of the reference's
+# largest |value| (the same kernels on the same inputs: expected 0); the
+# train step's loss by 1e-3 of itself, its gradient norm by 1e-2 (its
+# square summed from the shards), each updated parameter by 2 lr plus one
+# bf16 step of the largest (a sign flip of a tiny gradient; a last-bit
+# change of the update rounding the bf16 parameter the other way). The
+# ring prefill's 384 rows take the flash kernel per block where the
+# one-device trunk takes the plain route (below 512 rows), so it is held
+# by phase 3's rule to the trunk in fp32: within twice the bf16 trunk's
+# distance from it plus 1% of its mean |value|.
+MULTI_FWD_REL = 1e-3
+MULTI_LOSS_REL, MULTI_NORM_REL = 1e-3, 1e-2
+
+
+def run_multi(seed: int, prompt: torch.Tensor) -> dict:
+    """Phase 11 in a process of its own (the group needs torchrun's
+    environment); returns the parallel paths' launches."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    work = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    try:
+        prompt_path = os.path.join(work, "prompt.pt")
+        out_path = os.path.join(work, "report.json")
+        torch.save(prompt, prompt_path)
+        env = {**os.environ, "RANK": "0", "LOCAL_RANK": "0",
+               "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port)}
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--seed", str(seed), "--multi-worker", out_path,
+                        prompt_path], env=env, check=True, timeout=600)
+        with open(out_path) as f:
+            out = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("multi", f"phase 11 process: {time.perf_counter() - t0:.1f} s")
+    return out["launches"]
+
+
+def _measured(fn):
+    """(fn(), wall s, peak bytes, launches) of one call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            read_launches())
+
+
+def _max_abs(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _pair(name: str, ref: tuple, got: tuple, extra: dict) -> dict:
+    """Log one path against its one-device call; the launches must be
+    the one-device call's unless the path's routing differs (extra)."""
+    rec = {"path": name, "wall_s": got[1], "one_device_wall_s": ref[1],
+           "peak_bytes": got[2], "one_device_peak_bytes": ref[2],
+           "launches": got[3], "one_device_launches": ref[3], **extra}
+    log("multi", json.dumps(rec))
+    return rec
+
+
+def multi_worker(out_path: str, prompt_path: str, seed: int) -> int:
+    """Phase 11's body (in the process run_multi starts)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from open_pandora_tpu_torch.core.config import PandoraConfig, load_config
+    from open_pandora_tpu_torch.eval.inference import build_model
+    from open_pandora_tpu_torch.models.encoders import empty_prompt_tokens
+    from open_pandora_tpu_torch.ops import kernels
+    from open_pandora_tpu_torch.parallel.launch import init_distributed
+    from open_pandora_tpu_torch.parallel.mesh import build_mesh
+    from open_pandora_tpu_torch.parallel.sharded_infer import (
+        sharded_decode, sharded_synthesis)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    kernels.library()
+    if not init_distributed("cuda"):
+        raise AssertionError("init_distributed opened no group")
+    log("multi", f"group: backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, rank {dist.get_rank()}, device "
+        f"cuda:{torch.cuda.current_device()}; {card_line()}")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError("phase 11 runs one NCCL rank")
+    cfg = PandoraConfig()
+    fcfg = load_config(["configs/finetune.yaml"])
+    ms = build_mesh(fcfg.mesh)
+    launches = dict.fromkeys(KERNEL_KEYS, 0)
+    report = {"card": card_line(), "mesh": dataclasses.asdict(fcfg.mesh)}
+
+    def count(rec):
+        for k in KERNEL_KEYS:
+            launches[k] += rec[3][k]
+
+    try:
+        h, w = cfg.train.height, cfg.train.width
+        model = build_model(cfg, device=device, dtype=torch.bfloat16,
+                            generator=torch.Generator(device=device)
+                            .manual_seed(seed + 21))
+        rng = np.random.default_rng(seed + 22)
+        image = torch.from_numpy(rng.random((1, h, w, 3), np.float32)
+                                 ).to(device)
+        with torch.no_grad():
+            text = model.encode_text(empty_prompt_tokens(
+                1, cfg.clip_text.context_length, device=device))
+        kw = dict(text_context=text, cond_images=image,
+                  cond_frames=image[:, None] * 2 - 1, ddim_steps=MULTI_STEPS,
+                  guidance_scale=7.5, guidance_rescale=0.7, fs=3)
+
+        def synth(fn):
+            with torch.no_grad():
+                return fn(**kw, generator=torch.Generator(device=device)
+                          .manual_seed(seed))
+        synth(model.image_guided_synthesis)                    # warm-up
+        ref = _measured(lambda: synth(model.image_guided_synthesis))
+        got = _measured(lambda: synth(
+            lambda **a: sharded_synthesis(model, ms, **a)))
+        count(got)
+        d = _max_abs(got[0], ref[0])
+        report["synthesis"] = _pair("sharded_synthesis", ref, got, {
+            "max_abs_diff": d, "scale": ref[0].abs().max().item()})
+        if not d <= MULTI_FWD_REL * ref[0].abs().max().item() or \
+                got[3] != ref[3]:
+            raise AssertionError("sharded_synthesis != one device")
+        z = ref[0]
+        with torch.no_grad():
+            ref = _measured(lambda: model.decode(z, frame_chunk=8))
+            got = _measured(lambda: sharded_decode(model, ms, z,
+                                                   frame_chunk=8))
+        count(got)
+        d = _max_abs(got[0], ref[0])
+        report["decode"] = _pair("sharded_decode", ref, got, {
+            "max_abs_diff": d, "shape": list(got[0].shape)})
+        if not d <= MULTI_FWD_REL * ref[0].abs().max().item() or \
+                got[3] != ref[3]:
+            raise AssertionError("sharded_decode != one device")
+        del z, ref, got
+
+        report["train"] = _multi_train(model, fcfg, ms, seed, count)
+        del model
+        torch.cuda.empty_cache()
+        report["trainer"] = _multi_trainer(seed, count)
+        report["llama"] = _multi_llama(device, cfg, seed, prompt_path,
+                                       count)
+    finally:
+        dist.destroy_process_group()
+    missing = [k for k in MULTI_KEYS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels of the path never launched: {missing}")
+    report["launches"] = launches
+    log("multi", json.dumps({"launches": launches}))
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches, "report": report}, f)
+    return 0
+
+
+def _multi_train(model, fcfg, ms, seed: int, count) -> dict:
+    """The dynamicrafter step (finetune.yaml's train settings, batch 1 at
+    320x512x16f, dropout off) on one device, under the mesh with ZeRO-2,
+    and with FSDP, from the same weights, batch and draws."""
+    import dataclasses
+
+    from open_pandora_tpu_torch.data.webvid import (PrefetchLoader,
+                                                    SyntheticVideoDataset)
+    from open_pandora_tpu_torch.train.step import (TrainState,
+                                                   make_finetune_step)
+    from torch.distributed.tensor import DTensor
+
+    cfg = model.cfg
+    tcfg = dataclasses.replace(fcfg.train, stage="dynamicrafter")
+    zero_dropout_(model)
+    batch = next(iter(PrefetchLoader(SyntheticVideoDataset(
+        video_length=tcfg.video_length, resolution=(tcfg.height, tcfg.width),
+        clip_size=cfg.clip_vision.image_size), 1,
+        text_len=cfg.clip_text.context_length).epoch(0)))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def run(mesh_spec, fsdp):
+        model.load_state_dict(init)
+        step = make_finetune_step(model, tcfg, mesh_spec=mesh_spec,
+                                  fsdp=fsdp)
+        state = TrainState.create(model, "dynamicrafter", tcfg)
+        if mesh_spec is not None:
+            state = step.shard_state(state)
+        gen = torch.Generator(device=model.device).manual_seed(seed + 23)
+        rec = _measured(lambda: step(state, batch, generator=gen))
+        params = {k: p.full_tensor() if isinstance(p, DTensor) else
+                  p.detach().clone() for k, p in state.trainable.items()}
+        metrics = {k: float(v) for k, v in rec[0].items()}
+        kinds = [s.kind for s in state.optimizer.slots]
+        del state, step
+        torch.cuda.empty_cache()
+        return (metrics, *rec[1:]), params, {
+            k: kinds.count(k) for k in ("rep", "shard", "fsdp")}
+
+    run(None, False)                                           # warm-up
+    ref, ref_params, _ = run(None, False)
+    top = max(p.abs().max().item() for p in ref_params.values())
+    bound = 2 * tcfg.learning_rate + top * 2.0 ** -7
+    # held on the host, so that the mesh steps' peaks are comparable to the
+    # one-device step's
+    ref_params = {k: v.cpu() for k, v in ref_params.items()}
+    torch.cuda.empty_cache()
+    out = {"one_device": ref[0]}
+    for name, fsdp in (("zero2", False), ("fsdp", True)):
+        got, params, kinds = run(ms, fsdp)
+        count(got)
+        d = max(_max_abs(params[k], v.to(params[k].device))
+                for k, v in ref_params.items())
+        del params
+        m, r = got[0], ref[0]
+        out[name] = _pair(f"train_{name}", ref, got, {
+            "metrics": m, "slots": kinds, "param_max_abs_diff": d,
+            "param_bound": bound})
+        if (abs(m["loss"] - r["loss"]) > MULTI_LOSS_REL * r["loss"]
+                or abs(m["grad_norm"] - r["grad_norm"])
+                > MULTI_NORM_REL * r["grad_norm"] or d > bound
+                or got[3] != ref[3]
+                # one data rank: ZeRO-2 shards nothing, FSDP holds DTensors
+                or (not kinds["fsdp"] if fsdp else kinds["shard"] > 0)):
+            raise AssertionError(f"train step {name} != one device")
+    return out
+
+
+MULTI_TRAIN_STEPS = 2
+
+
+def _multi_trainer(seed: int, count) -> dict:
+    """train.trainer.run inside the group: configs/finetune.yaml (its mesh,
+    ZeRO-2 over the data axis) at stage dynamicrafter, synthetic data,
+    2 steps into a temporary logdir; rank 0 writes the metrics and the
+    final checkpoint."""
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.train import trainer
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_multi_train_")
+    try:
+        rec = _measured(lambda: trainer.run([
+            "--config", "configs/finetune.yaml", "--synthetic-data",
+            "--max-steps", str(MULTI_TRAIN_STEPS), "--logdir", logdir,
+            "--name", "multi", "--device", "cuda", "--logger", "none",
+            "--set", "train.stage=dynamicrafter",
+            "--set", "train.log_every=1", "--set", f"train.seed={seed}"]))
+        state = rec[0]
+        mesh = state.optimizer.mesh
+        kinds = [sl.kind for sl in state.optimizer.slots]
+        step = state.step
+        del state
+        torch.cuda.empty_cache()
+        ws = os.path.join(logdir, "multi")
+        with open(os.path.join(ws, "loginfo", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        ckpts = sorted(os.listdir(os.path.join(ws, "checkpoints")))
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    count(rec)
+    cfg = PandoraConfig()
+    want = predicted_train_launches(cfg, cfg.train.height, cfg.train.width,
+                                    batch=1,
+                                    frames=cfg.train.video_length + 1,
+                                    bf16=True)
+    out = {"path": "trainer_run", "steps": step, "wall_s": rec[1],
+           "peak_bytes": rec[2], "launches": rec[3],
+           "mesh": [mesh.n_data, mesh.n_model], "checkpoints": ckpts,
+           "loss": [r["loss"] for r in recs],
+           "grad_norm": [r["grad_norm"] for r in recs]}
+    log("multi", json.dumps(out))
+    if mesh is None or mesh.data_group is None:
+        raise AssertionError("the trainer's optimizer holds no data group")
+    if (step != MULTI_TRAIN_STEPS or len(recs) != MULTI_TRAIN_STEPS
+            or ckpts != [f"step_{MULTI_TRAIN_STEPS}"]
+            or not all(np.isfinite(r[k]) for r in recs
+                       for k in ("loss", "grad_norm"))):
+        raise AssertionError(f"bad trainer run {out}")
+    if kinds.count("rep") != len(kinds):
+        raise AssertionError(f"one data rank sharded a leaf: {kinds}")
+    if rec[3] != {k: MULTI_TRAIN_STEPS * want[k] for k in KERNEL_KEYS}:
+        raise AssertionError(f"launches {rec[3]} != {MULTI_TRAIN_STEPS} x "
+                             f"{want}")
+    return out
+
+
+def _multi_llama(device, cfg, seed: int, prompt_path: str, count) -> dict:
+    """The LLaMA-7B (random weights, bf16) prefill: phase 7's round-2
+    prompt on the ring (sp_llama_prefill), then TP_ROWS rows of embedded
+    random ids under tensor parallelism, each against the one-device
+    trunk."""
+    from open_pandora_tpu_torch.core.config import MeshConfig
+    from open_pandora_tpu_torch.core.init import init_random_
+    from open_pandora_tpu_torch.models.llama import LlamaForCausalLM
+    from open_pandora_tpu_torch.parallel.mesh import build_mesh
+    from open_pandora_tpu_torch.parallel.sp import sp_llama_prefill
+    from open_pandora_tpu_torch.parallel.tp import shard_llama_
+
+    with torch.device("meta"):
+        llama = LlamaForCausalLM(cfg.llama)
+    llama = llama.to(torch.bfloat16).to_empty(device=device).eval()
+    init_random_(llama, torch.Generator(device=device).manual_seed(seed + 24))
+    ms = build_mesh(MeshConfig())
+    out = {}
+    with torch.no_grad():
+        prompt = torch.load(prompt_path).to(device)
+        llama.trunk(prompt)                                    # warm-up
+        ref = _measured(lambda: llama.trunk(prompt))
+        got = _measured(lambda: sp_llama_prefill(llama, prompt, ms=ms))
+        count(got)
+        llama.float()     # bf16 -> fp32 -> bf16 is exact
+        ref32 = llama.trunk(prompt)
+        llama.to(torch.bfloat16)
+        err, bound = _kernel_bound(got[0], ref[0], ref32)
+        out["sp"] = _pair("sp_llama_prefill", ref, got, {
+            "rows": prompt.shape[1], "max_abs_diff": _max_abs(got[0], ref[0]),
+            "max_abs_err_fp32": err, "one_device_err_fp32":
+            _max_abs(ref[0], ref32), "bound": bound,
+            "scale": ref32.abs().max().item()})
+        del ref32
+        n_layers = cfg.llama.num_layers
+        if not err <= bound or got[3]["flash"] != n_layers:
+            raise AssertionError("sp_llama_prefill out of bound")
+        ids = torch.randint(0, cfg.llama.vocab_size, (1, TP_ROWS),
+                            generator=torch.Generator(device=device)
+                            .manual_seed(seed + 25), device=device)
+        emb = llama.embed(ids)
+        ref = _measured(lambda: llama.trunk(emb))
+        shard_llama_(ms, llama)
+        got = _measured(lambda: llama.trunk(emb))
+        count(got)
+        d = _max_abs(got[0], ref[0])
+        out["tp"] = _pair("tp_prefill", ref, got, {
+            "rows": TP_ROWS, "max_abs_diff": d,
+            "scale": ref[0].abs().max().item()})
+        if not d <= MULTI_FWD_REL * ref[0].abs().max().item() or \
+                got[3] != ref[3] or got[3]["flash"] != n_layers:
+            raise AssertionError("TP prefill != one device")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("chip_smoke")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ddim-steps", type=int, default=10)
+    # phase 11's own process: the JSON report's path and phase 7's prompt
+    p.add_argument("--multi-worker", nargs=2, metavar=("OUT", "PROMPT"),
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.multi_worker:
+        return multi_worker(*args.multi_worker, args.seed)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's card run "
@@ -2734,7 +3119,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths["wide_heads"] = run_wide_heads(device, args.seed)
     paths["train"] = run_train(device, args.seed)
-    paths["world"] = run_world(device, args.seed)
+    prompts = []
+    paths["world"] = run_world(device, args.seed, prompts)
     torch.cuda.empty_cache()
     paths["train_llm"] = run_train_llm(device, args.seed)
     torch.cuda.empty_cache()
@@ -2743,6 +3129,8 @@ def main(argv=None) -> int:
         "here: they need OpenCV, which this machine may lack; the CPU "
         "tests (tests/test_torch_video_data.py) cover them")
     paths["train_hires"] = run_train_hires(device, args.seed)
+    torch.cuda.empty_cache()
+    paths["multi"] = run_multi(args.seed, prompts[-1])
 
     # launches: the main paths' runs together, and each on its own
     kernels_line = {"kernels": [

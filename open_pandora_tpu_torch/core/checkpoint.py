@@ -21,15 +21,18 @@ import torch
 PARAMS_FILE = "params.pt"
 
 
-def init_workspace(logdir: str, name: str, cfg) -> Dict[str, str]:
-    """Create the run's directories and write its config as JSON."""
+def init_workspace(logdir: str, name: str, cfg,
+                   write: bool = True) -> Dict[str, str]:
+    """The run's directories; with `write` (the writing rank) create them
+    and write the config as JSON."""
     root = os.path.join(logdir, name)
     dirs = {k: os.path.join(root, k)
             for k in ("checkpoints", "configs", "loginfo")}
-    for d in dirs.values():
-        os.makedirs(d, exist_ok=True)
-    with open(os.path.join(dirs["configs"], "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+    if write:
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
+        with open(os.path.join(dirs["configs"], "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
     dirs["root"] = root
     return dirs
 

@@ -221,8 +221,10 @@ class SamplerConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh, as the shipped config files set it. The port runs on one
-    device: a mesh of more waits for the multi-device slice."""
+    """The (data, model) mesh over the ranks torchrun starts
+    (parallel/mesh.py build_mesh): data_parallel -1 takes every rank not in
+    the model axis; shard_opt_state turns ZeRO-2 on (the optimizer state
+    split over the data axis)."""
 
     data_axis: str = "data"
     model_axis: str = "model"

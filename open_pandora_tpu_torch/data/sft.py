@@ -23,7 +23,7 @@ import json
 import logging
 import os
 import random
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -267,6 +267,18 @@ def collate_examples(examples: Sequence[SFTExample], cfg,
             "labels": torch.from_numpy(np.concatenate(label_cols, axis=1))}
 
 
+def batch_rows(batch: Dict, lo: int, hi: int) -> Dict:
+    """Rows [lo, hi) of a collated batch."""
+    prompt = batch["prompt"]
+    segments = [replace(seg, ids=seg.ids[lo:hi], mask=None if seg.mask is None
+                        else seg.mask[lo:hi])
+                if isinstance(seg, TokenSegment) else seg
+                for seg in prompt.segments]
+    return {"prompt": MultimodalPrompt(segments=segments,
+                                       images=prompt.images[lo:hi]),
+            "labels": batch["labels"][lo:hi]}
+
+
 def synthetic_conversations(n: int = 32, seed: int = 0) -> List[Dict]:
     """Deterministic chat records, text-only and single-image in turns,
     for SFT runs without external data."""
@@ -346,10 +358,23 @@ class ConversationDataset:
                                          template=self.template)
 
     def batches(self, batch_size: int, cfg, bucket: Optional[int] = None,
-                drop_remainder: bool = False):
+                drop_remainder: bool = False,
+                shard: Tuple[int, int] = (0, 1)):
         """Collated batches of one signature each; the leftover groups
         follow at the end unless drop_remainder. A record that fails to
-        load is skipped (webvid.py:104 semantics)."""
+        load is skipped (webvid.py:104 semantics). `batch_size` is the
+        global batch; with `shard=(rank, n)` (which needs drop_remainder
+        when n > 1) each is cut to this rank's rows [rank * b, (rank + 1)
+        * b), b = batch_size / n, of the global collated batch (its
+        lengths): every rank reads every record to know the groups."""
+        rank, n = shard
+        if batch_size % n:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{n} data ranks")
+        if n > 1 and not drop_remainder:
+            raise ValueError("sharded batches need drop_remainder: a "
+                             "leftover group does not split evenly")
+        b = batch_size // n
         groups: Dict[Tuple, List[SFTExample]] = {}
         for i in range(len(self)):
             try:
@@ -360,7 +385,9 @@ class ConversationDataset:
             g = groups.setdefault(ex.signature, [])
             g.append(ex)
             if len(g) == batch_size:
-                yield collate_examples(g, cfg, bucket=bucket)
+                batch = collate_examples(g, cfg, bucket=bucket)
+                yield batch if n == 1 else batch_rows(
+                    batch, rank * b, (rank + 1) * b)
                 groups[ex.signature] = []
         if not drop_remainder:
             for g in groups.values():

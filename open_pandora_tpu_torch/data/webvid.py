@@ -29,7 +29,7 @@ import logging
 import os
 import random
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -215,15 +215,24 @@ class PrefetchLoader:
     `num_workers` batches in flight; captions are tokenized to the fixed
     CLIP length. With an `llm_tokenizer` (the LLM stages) the batch also
     holds `llm_text_tokens` (b, llm_text_len): bos + caption ids, cut or
-    zero-padded to the fixed length."""
+    zero-padded to the fixed length.
+
+    `batch_size` is the global batch; with `shard=(rank, n)` this loader
+    loads and yields only rows [rank * b, (rank + 1) * b) of each, b =
+    batch_size / n, in the order the single-process loader gives them."""
 
     num_workers = 4
     seed = 0
 
     def __init__(self, dataset, batch_size: int, text_len: int = 77,
-                 llm_tokenizer=None, llm_text_len: int = 16):
+                 llm_tokenizer=None, llm_text_len: int = 16,
+                 shard: Tuple[int, int] = (0, 1)):
+        if batch_size % shard[1]:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{shard[1]} data ranks")
         self.ds = dataset
         self.bs = batch_size
+        self.shard = shard
         self.text_len = text_len
         self.tokenize = load_clip_tokenizer(context_length=text_len)
         self.llm_tokenizer = llm_tokenizer
@@ -257,7 +266,9 @@ class PrefetchLoader:
     def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """The epoch's full batches, in order (the remainder is dropped)."""
         idx = self._epoch_indices(epoch)
-        batches = iter([idx[i:i + self.bs]
+        rank, n = self.shard
+        b = self.bs // n
+        batches = iter([idx[i + rank * b:i + (rank + 1) * b]
                         for i in range(0, len(idx) - self.bs + 1, self.bs)])
         with ThreadPoolExecutor(self.num_workers) as pool:
             pending: collections.deque = collections.deque()

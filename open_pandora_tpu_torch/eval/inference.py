@@ -10,6 +10,11 @@ Usage:
       --save-dir OUT [--ckpt PATH] [--bpe MERGES] [--ddim-steps 50]
       [--ugs 7.5] [--guidance-rescale 0.7] [--height 320 --width 512]
       [--fs 3] [--device cuda] [--debug]
+
+Across cards, `torchrun --nproc-per-node N -m
+open_pandora_tpu_torch.eval.inference ...` runs one process per card
+(parallel.launch.init_distributed), each on its slice of the prompt list
+(parallel.mesh.process_shard_indices, reference inference.py:276-282).
 """
 
 from __future__ import annotations
@@ -180,11 +185,15 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from open_pandora_tpu_torch.parallel.launch import (init_distributed,
+                                                        local_device)
+    from open_pandora_tpu_torch.parallel.mesh import process_shard_indices
     from open_pandora_tpu_torch.pipeline.cli import decode_image
     from open_pandora_tpu_torch.utils.video_io import (frames_to_uint8,
                                                        write_video)
 
-    device = torch.device(args.device)
+    device = local_device(args.device)
+    init_distributed(device)
     if args.debug:
         cfg, dtype = debug_config(), torch.float32
         height = width = 32
@@ -204,6 +213,7 @@ def main(argv=None) -> int:
     tokenizer = load_clip_tokenizer(args.bpe)
 
     items = load_prompt_list(args.prompt_dir)
+    items = [items[i] for i in process_shard_indices(len(items))]
     os.makedirs(args.save_dir, exist_ok=True)
     t0 = time.time()
     for img_name, prompt in items:

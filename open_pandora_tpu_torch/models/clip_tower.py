@@ -28,6 +28,9 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class _Embeddings(nn.Module):
+    # forward reads position_embedding's weight: one FSDP unit
+    fsdp_unit = True
+
     def __init__(self, cfg: CLIPTowerConfig):
         super().__init__()
         grid = cfg.image_size // cfg.patch_size

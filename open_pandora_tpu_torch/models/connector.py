@@ -128,6 +128,11 @@ class QFormer(nn.Module):
 class Connector(nn.Module):
     """image_prefix rows; qformer_proj -> Q-Former -> proj."""
 
+    # prefix_embeddings reads image_prefix's weight: one FSDP unit, with
+    # that method gathered as forward is
+    fsdp_unit = True
+    fsdp_methods = ("prefix_embeddings",)
+
     def __init__(self, cfg: ConnectorConfig, qcfg: QFormerConfig):
         super().__init__()
         self.image_prefix = nn.Linear(cfg.llm_hidden,

@@ -10,7 +10,7 @@ load_state_dict(strict=True).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -109,12 +109,15 @@ class DynamiCrafter(nn.Module):
         generator: Optional[torch.Generator] = None,
         x_T: Optional[torch.Tensor] = None,
         noise: Union[None, NoiseFn, Sequence[torch.Tensor]] = None,
+        _apply_model: Optional[Callable] = None,
     ) -> torch.Tensor:
         """Latents (b, T, h/8, w/8, 4). Conditioning: the text context, the
         CLIP image context of cond_images ([0, 1]) and the VAE latents of
         cond_frames ([-1, 1]); the uncond stream pairs the empty prompt with
         a zero image. x_T and the per-step noise are drawn from `generator`
-        unless given."""
+        unless given. `_apply_model(x, t, ctx, concat, fs)` stands in for
+        apply_model (parallel/sharded_infer.py shards the CFG-stream batch
+        with it)."""
         streams = self.synthesis_streams(
             text_context=text_context, cond_images=cond_images,
             cond_frames=cond_frames, guidance_scale=guidance_scale,
@@ -123,7 +126,8 @@ class DynamiCrafter(nn.Module):
                            guidance_scale=guidance_scale, eta=eta,
                            guidance_rescale=guidance_rescale,
                            timestep_spacing=timestep_spacing, cfg_img=cfg_img,
-                           generator=generator, x_T=x_T, noise=noise)
+                           generator=generator, x_T=x_T, noise=noise,
+                           _apply_model=_apply_model)
 
     def synthesis_streams(self, *, text_context: torch.Tensor,
                           cond_images: torch.Tensor, cond_frames: torch.Tensor,
@@ -167,17 +171,20 @@ class DynamiCrafter(nn.Module):
                generator: Optional[torch.Generator] = None,
                x_T: Optional[torch.Tensor] = None,
                noise: Union[None, NoiseFn, Sequence[torch.Tensor]] = None,
+               _apply_model: Optional[Callable] = None,
                ) -> torch.Tensor:
         """The DDIM loop of image_guided_synthesis over precomputed
-        streams: one batched-CFG UNet eval per step."""
+        streams: one batched-CFG UNet eval per step (through
+        `_apply_model` when given)."""
         cfg = self.cfg
         z_cond, fs_arr = streams["z_cond"], streams["fs"]
         b = z_cond.shape[0]
+        raw_apply = _apply_model or self.apply_model
 
         def apply(x, t, ctx):
             reps = x.shape[0] // b
-            return self.apply_model(x, t, ctx, torch.cat([z_cond] * reps),
-                                    torch.cat([fs_arr] * reps))
+            return raw_apply(x, t, ctx, torch.cat([z_cond] * reps),
+                             torch.cat([fs_arr] * reps))
 
         model_fn = make_cfg_model_fn(apply, streams["cond_ctx"],
                                      streams["uncond_ctx"],

@@ -73,6 +73,9 @@ class _MLP(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     """open_clip pre-LN block: ln_1 -> MHA -> +, ln_2 -> MLP(GELU) -> +."""
 
+    # forward reads attn's in-projection: one FSDP unit
+    fsdp_unit = True
+
     def __init__(self, d: int, heads: int):
         super().__init__()
         self.heads = heads

@@ -110,13 +110,15 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, n, d = x.shape
-        q, k, v = (p(x).view(b, n, self.heads, d // self.heads)
+        # the head width from the projections: under tensor parallelism
+        # (parallel/tp.py) this rank holds `heads` of them
+        b, n, _ = x.shape
+        q, k, v = (p(x).view(b, n, self.heads, -1)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
         q = rotary_embed(q, positions, self.theta)
         k = rotary_embed(k, positions, self.theta)
         o = attention(q, k, v, causal=True, mask=mask)
-        return self.o_proj(o.reshape(b, n, d))
+        return self.o_proj(o.reshape(b, n, -1))
 
 
 class LlamaMLP(nn.Module):

@@ -17,6 +17,8 @@ from open_pandora_tpu_torch.ops.attention_xla import mha
 from open_pandora_tpu_torch.ops.flash_attention import flash_attention
 from open_pandora_tpu_torch.ops.small_attention import (
     small_attention, small_attention_eligible)
+from open_pandora_tpu_torch.parallel.sp import (current_sp, ring_attention,
+                                                sp_eligible)
 
 # below this q*kv size the score matrix is small enough that the plain route
 # costs little
@@ -42,7 +44,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: Optional[float] = None) -> torch.Tensor:
     """Multi-head attention, q (B, N, H, D), k/v (B, M, H, D) -> (B, N, H, D).
     mask broadcasts to (B, H, N, M), True = attend; a mask forces the plain
-    route."""
+    route. Inside parallel.sp.sequence_parallel, eligible causal
+    self-attention (LLaMA prefill) takes the ring over the mesh's data axis
+    (q, k, v are then this rank's sequence shards)."""
+    if sp_eligible(q.shape, k.shape, causal, mask):
+        return ring_attention(q, k, v, ms=current_sp(), sm_scale=sm_scale,
+                              causal=True)
     route = attention_route(q.shape, k.shape, causal=causal,
                             masked=mask is not None, on_device=q.is_cuda)
     if route == "flash":

@@ -13,9 +13,10 @@ clustering stay frozen.
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from open_pandora_tpu_torch.core.config import TrainConfig
@@ -23,6 +24,7 @@ from open_pandora_tpu_torch.data.sft import IGNORE_INDEX
 from open_pandora_tpu_torch.models.world_model import (MultimodalPrompt,
                                                        TokenSegment,
                                                        WorldModel)
+from open_pandora_tpu_torch.parallel.mesh import MeshSpec
 from open_pandora_tpu_torch.train.step import make_finetune_step
 
 
@@ -52,11 +54,16 @@ def build_labels(wm: WorldModel, prompt: MultimodalPrompt,
     return torch.cat(cols, dim=1)
 
 
-def sft_loss(wm: WorldModel, batch, **_):
+def sft_loss(wm: WorldModel, batch, group=None, **_):
     """batch: {'prompt': MultimodalPrompt, 'labels': (b, L) int} ->
     (loss, {loss, n_supervised}). Pads (mid-sequence ones included, where
     chunk columns pad to the batch's longest) are masked out of attention
-    and position-transparent, as in get_diffusion_conditioning."""
+    and position-transparent, as in get_diffusion_conditioning.
+
+    With a data-axis `group` the batch is this rank's slice: the loss is
+    normalised by the global batch's supervised count and scaled by the
+    group's size, so the mean over the ranks is the global batch's loss
+    (and so are the averaged gradients)."""
     prompt = batch["prompt"]
     labels = torch.as_tensor(batch["labels"]).to(wm.device).long()
     embeds, _ = wm.build_inputs_embeds(prompt)
@@ -72,14 +79,28 @@ def sft_loss(wm: WorldModel, batch, **_):
     ll = F.cross_entropy(logits.float().flatten(0, 1),
                          torch.where(mask, targets, 0).flatten(),
                          reduction="none").view(targets.shape)
-    denom = mask.sum().clamp_min(1)
-    loss = (ll * mask).sum() / denom
+    total = (ll * mask).sum()
+    if group is None:
+        denom = mask.sum().clamp_min(1)
+        loss = total / denom
+    else:
+        denom = mask.sum()
+        dist.all_reduce(denom, group=group)
+        denom = denom.clamp_min(1)
+        loss = total / denom * dist.get_world_size(group)
     return loss, {"loss": loss.detach(), "n_supervised": denom}
 
 
-def make_llm_sft_step(wm: WorldModel, tcfg: TrainConfig) -> Callable:
+def make_llm_sft_step(wm: WorldModel, tcfg: TrainConfig,
+                      mesh_spec: Optional[MeshSpec] = None,
+                      fsdp: bool = False) -> Callable:
     """The SFT step on make_finetune_step: full (LLaMA + mm_projector) by
     default, the adapters + mm_projector when the LLaMA has LoRA adapters
-    (ChatUniVi train.py:98-103); TrainState.create takes sft_stage(wm)."""
-    return make_finetune_step(wm, tcfg, stage=sft_stage(wm),
-                              loss_fn=functools.partial(sft_loss, wm))
+    (ChatUniVi train.py:98-103); TrainState.create takes sft_stage(wm).
+    fsdp=True stores the large LLaMA weights sharded over the data axis
+    (the reference's FSDP-wrapped trainer, ChatUniVi/train/train.py:974):
+    full SFT at 7B does not fit replicated."""
+    group = mesh_spec.data_group if mesh_spec is not None else None
+    return make_finetune_step(
+        wm, tcfg, stage=sft_stage(wm), mesh_spec=mesh_spec, fsdp=fsdp,
+        loss_fn=functools.partial(sft_loss, wm, group=group))

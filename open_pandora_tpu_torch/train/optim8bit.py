@@ -18,6 +18,9 @@ from typing import List, NamedTuple, Sequence
 import numpy as np
 import torch
 
+# the JAX package's scale_by_adam8bit default
+BLOCK_SIZE = 2048
+
 
 class Quantized(NamedTuple):
     q: torch.Tensor        # int8 payload, padded flat (n_blocks * block)
@@ -55,7 +58,7 @@ class AdamW8bit:
 
     def __init__(self, params: Sequence[torch.Tensor], b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0, block_size: int = 2048):
+                 weight_decay: float = 0.0, block_size: int = BLOCK_SIZE):
         self.params = list(params)
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.block = weight_decay, block_size

@@ -1,5 +1,5 @@
 """The train steps of the `dynamicrafter`, `finetune` and `alignment`
-stages, on one device.
+stages, on one device or over a (data, model) mesh.
 
 Counterpart of `make_finetune_step`, `_finetune_loss`,
 `make_wm_finetune_step` and `make_alignment_step` in
@@ -28,18 +28,29 @@ gradient crosses all its layers, as JAX's value_and_grad sends it. The
 VAE encode and the OpenCLIP text and image encoders run under no_grad.
 
 The random draws (posterior noise `eps`, CFG dropout mask `uncond`,
-timesteps `t`, diffusion `noise`) come from an explicit torch.Generator
-or from the caller's `draws` dict. Dropout inside the UNet draws from the
-global RNG (see models/unet3d.py).
+timesteps `t`, diffusion `noise`) for the global batch are the caller's
+`draws` dict, or finetune_draws' from an explicit torch.Generator. Dropout
+inside the UNet draws from the global RNG (see models/unet3d.py).
+
+Over a mesh (JAX train/step.py:330-415) each data rank passes its slice of
+the global batch (parallel.mesh.shard_batch, or the loaders' `shard`) and
+takes its slice of the global batch's draws, so N ranks reproduce one
+device's step on the global batch; the optimizer averages the gradients
+over the data axis (DDP) with ZeRO-2 (train/optim.py), and with fsdp=True
+the large parameters are stored sharded (parallel.mesh.apply_fsdp). The
+step calls `apply_model` and the encoders, not the module's forward, so
+the collectives are explicit, after backward, and no
+DistributedDataParallel wrapper is used.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from open_pandora_tpu_torch.core.config import TrainConfig
@@ -51,11 +62,10 @@ from open_pandora_tpu_torch.models.vae import encode_video
 from open_pandora_tpu_torch.models.world_model import (MultimodalPrompt,
                                                        WorldModel,
                                                        round1_prompt)
+from open_pandora_tpu_torch.parallel.mesh import (MeshSpec, apply_fsdp,
+                                                  shard_rows)
 from open_pandora_tpu_torch.train.ema import EMA
 from open_pandora_tpu_torch.train.optim import Optimizer, trainable_partition
-
-DRAWS = ("eps", "uncond", "t", "noise")
-
 
 @dataclass
 class TrainState:
@@ -80,16 +90,17 @@ class TrainState:
 
 def _finetune_loss(model: DynamiCrafter, tcfg: TrainConfig,
                    batch: Dict[str, torch.Tensor], *,
-                   generator: Optional[torch.Generator] = None,
-                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   draws: Dict[str, torch.Tensor],
                    text_context: Optional[Callable] = None):
-    """The diffusion loss. `text_context(batch)` gives the text
+    """The diffusion loss on `draws` (finetune_draws' keys: `uncond` only
+    when tcfg.uncond_prob > 0). `text_context(batch)` gives the text
     conditioning (b, 77, 1024) with autograd on (the WorldModel's LLM
     conditioning); without it the OpenCLIP text encoder gives it."""
-    draws = draws or {}
-    if generator is None and not set(DRAWS) <= draws.keys():
-        raise ValueError(f"_finetune_loss: pass a generator or all of "
-                         f"{DRAWS} in draws")
+    need = {"eps", "t", "noise"} | ({"uncond"} if tcfg.uncond_prob > 0
+                                    else set())
+    if draws is None or not need <= draws.keys():
+        raise ValueError(f"_finetune_loss: pass all of {sorted(need)} in "
+                         "draws (finetune_draws)")
     cfg = model.cfg
     dev, dt = model.device, model.dtype
     with torch.no_grad():
@@ -97,7 +108,7 @@ def _finetune_loss(model: DynamiCrafter, tcfg: TrainConfig,
         # (ddpm3d.py:595-602)
         z = encode_video(model.first_stage_model, batch["video"].to(dev, dt),
                          scale_factor=cfg.diffusion.scale_factor,
-                         generator=generator, eps=draws.get("eps"))
+                         eps=draws["eps"])
     if text_context is not None:
         text_ctx = text_context(batch)
     with torch.no_grad():
@@ -110,26 +121,46 @@ def _finetune_loss(model: DynamiCrafter, tcfg: TrainConfig,
         if tcfg.uncond_prob > 0:
             null_ctx = model.encode_text(empty_prompt_tokens(
                 b, cfg.clip_text.context_length, device=dev))
-            mask = draws.get("uncond")
-            if mask is None:
-                mask = torch.rand((b,), generator=generator,
-                                  device=dev) < tcfg.uncond_prob
     # CFG dropout on the text conditioning only (model.py:860-868), outside
     # no_grad: the kept samples' LLM conditioning carries its gradient
     if tcfg.uncond_prob > 0:
-        text_ctx = torch.where(mask.to(dev).reshape(b, 1, 1), null_ctx,
-                               text_ctx)
+        text_ctx = torch.where(draws["uncond"].to(dev).reshape(b, 1, 1),
+                               null_ctx, text_ctx)
     ctx = torch.cat([text_ctx, img_ctx], dim=1)
 
     def apply(x_noisy, t):
         return model.apply_model(x_noisy, t, ctx, z_cond, fs=fs)
 
     return diffusion_loss(
-        apply, model.schedule, z, generator=generator, t=draws.get("t"),
-        noise=draws.get("noise"),
+        apply, model.schedule, z, t=draws["t"], noise=draws["noise"],
         parameterization=cfg.diffusion.parameterization,
         use_dynamic_rescale=cfg.diffusion.use_dynamic_rescale,
         l_simple_weight=cfg.diffusion.l_simple_weight)
+
+
+def finetune_draws(model: DynamiCrafter, tcfg: TrainConfig,
+                   video_shape, generator: torch.Generator) -> Dict:
+    """The draws `_finetune_loss` takes, made from `generator` for videos
+    of `video_shape` (b, T, H, W, 3): the posterior noise, the CFG dropout
+    mask, the timesteps and the diffusion noise (fp32 under the dynamic
+    rescale, which promotes the latents). The one place the finetune loss's
+    randomness is drawn."""
+    cfg, dev = model.cfg, model.device
+    b, t, h, w = video_shape[:4]
+    f = 2 ** (len(cfg.vae.channel_mult) - 1)
+    shape = (b, t, h // f, w // f, cfg.vae.embed_dim)
+    out = {"eps": torch.randn(shape, generator=generator, device=dev,
+                              dtype=model.dtype)}
+    if tcfg.uncond_prob > 0:
+        out["uncond"] = torch.rand((b,), generator=generator,
+                                   device=dev) < tcfg.uncond_prob
+    out["t"] = torch.randint(0, model.schedule.num_timesteps, (b,),
+                             generator=generator, device=dev)
+    out["noise"] = torch.randn(
+        shape, generator=generator, device=dev,
+        dtype=torch.float32 if cfg.diffusion.use_dynamic_rescale
+        else model.dtype)
+    return out
 
 
 def llm_prompt(wm: WorldModel, batch) -> MultimodalPrompt:
@@ -144,7 +175,9 @@ def llm_prompt(wm: WorldModel, batch) -> MultimodalPrompt:
                          prefix_len=wm.cfg.connector.image_prefix_length)
 
 
-def make_wm_finetune_step(wm: WorldModel, tcfg: TrainConfig) -> Callable:
+def make_wm_finetune_step(wm: WorldModel, tcfg: TrainConfig,
+                          mesh_spec: Optional[MeshSpec] = None,
+                          fsdp: bool = False) -> Callable:
     """The `finetune` stage (model.py:926-949 + get_batch_input :828-884):
     the text conditioning is the LLM's (get_diffusion_conditioning of the
     round-1 prompt, its last round), UNet and connector train, and CFG
@@ -154,53 +187,107 @@ def make_wm_finetune_step(wm: WorldModel, tcfg: TrainConfig) -> Callable:
         return wm.get_diffusion_conditioning(llm_prompt(wm, batch))[:, -1]
 
     return make_finetune_step(
-        wm, tcfg, stage="finetune",
+        wm, tcfg, stage="finetune", mesh_spec=mesh_spec, fsdp=fsdp,
         loss_fn=functools.partial(_finetune_loss, wm.diffusion, tcfg,
-                                  text_context=text_context))
+                                  text_context=text_context),
+        draw_fn=functools.partial(finetune_draws, wm.diffusion, tcfg))
 
 
-def make_alignment_step(wm: WorldModel, tcfg: TrainConfig) -> Callable:
+def make_alignment_step(wm: WorldModel, tcfg: TrainConfig,
+                        mesh_spec: Optional[MeshSpec] = None,
+                        fsdp: bool = False) -> Callable:
     """The `alignment` stage (model.py:886-923, config_align.yaml): the
     connector trains on the KL from the LLM conditioning to the frozen
     OpenCLIP embedding of the caption (`text_tokens`)."""
 
-    def loss_fn(batch, *, generator=None, draws=None):
+    def loss_fn(batch, *, draws=None):
         loss = wm.alignment_loss(llm_prompt(wm, batch),
                                  batch["text_tokens"].to(wm.device))
         return loss, {"loss": loss.detach()}
 
-    return make_finetune_step(wm, tcfg, stage="alignment", loss_fn=loss_fn)
+    return make_finetune_step(wm, tcfg, stage="alignment", loss_fn=loss_fn,
+                              mesh_spec=mesh_spec, fsdp=fsdp)
 
 
 def make_finetune_step(model: nn.Module, tcfg: TrainConfig,
                        stage: str = "dynamicrafter",
-                       loss_fn: Optional[Callable] = None) -> Callable:
+                       loss_fn: Optional[Callable] = None,
+                       mesh_spec: Optional[MeshSpec] = None,
+                       fsdp: bool = False,
+                       draw_fn: Optional[Callable] = None) -> Callable:
     """step(state, batch, *, generator=None, draws=None) -> metrics
     (0-dim tensors on the model's device: the loss's, {loss, loss_simple}
-    for the diffusion loss, and grad_norm, the norm before clipping).
-    Updates state in place. `loss_fn(batch, *, generator, draws) -> (loss,
-    metrics)` is the stage's loss; the default is the `dynamicrafter`
-    stage's, on a DynamiCrafter."""
+    for the diffusion loss, and grad_norm, the norm before clipping; over
+    a mesh, averaged over the data axis). Updates state in place.
+    `loss_fn(batch, *, draws) -> (loss, metrics)` is the stage's loss; the
+    default is the `dynamicrafter` stage's, on a DynamiCrafter.
+    `draw_fn(video_shape, generator)` makes the loss's draws for the global
+    batch (the default stage's: finetune_draws); a step with a draw_fn
+    takes the `generator` or the `draws`, one without takes neither.
+
+    With a `mesh_spec`, `batch` is this data rank's slice of the global
+    batch, and `step.shard_state(state)` must have prepared the state
+    (the optimizer's ZeRO-2 plan; with fsdp=True the sharded parameters,
+    JAX's fsdp_param_spec over trainable, frozen and EMA leaves alike)."""
     if loss_fn is None:
         if stage != "dynamicrafter":
             raise ValueError(f"stage {stage!r} takes its own loss_fn "
                              "(make_wm_finetune_step, make_alignment_step, "
                              "train.llm_step.make_llm_sft_step)")
         loss_fn = functools.partial(_finetune_loss, model, tcfg)
+        draw_fn = functools.partial(finetune_draws, model, tcfg)
+    if fsdp and mesh_spec is None:
+        raise ValueError("fsdp=True shards over a mesh: pass mesh_spec")
+    n, rank = ((mesh_spec.n_data, mesh_spec.data_rank) if mesh_spec
+               else (1, 0))
+    group = mesh_spec.data_group if mesh_spec else None
+
+    def shard_state(state: TrainState) -> TrainState:
+        """The state with the mesh's layout: FSDP-sharded parameters when
+        fsdp, and an optimizer (and EMA) over the parameters as they now
+        are, with the ZeRO-2 plan. Load or restore weights before this."""
+        if fsdp:
+            apply_fsdp(state.model, mesh_spec)
+        params = dict(state.model.named_parameters())
+        trainable = {k: params[k] for k in state.trainable}
+        return replace(state, trainable=trainable,
+                       optimizer=Optimizer(trainable, tcfg, mesh_spec),
+                       ema=EMA(trainable) if state.ema is not None else None)
 
     def step(state: TrainState, batch, *,
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None):
+        if mesh_spec is not None and state.optimizer.mesh is not mesh_spec:
+            raise ValueError("a mesh step takes a state prepared by its "
+                             "shard_state")
         batch = {k: v if isinstance(v, MultimodalPrompt)
                  else torch.as_tensor(v) for k, v in batch.items()}
+        if draw_fn is not None:
+            if draws is None:
+                if generator is None:
+                    raise ValueError("pass a generator or the draws")
+                shape = batch["video"].shape
+                draws = draw_fn((n * shape[0], *shape[1:]), generator)
+            if n > 1:
+                draws = {k: shard_rows(v, n, rank) for k, v in draws.items()}
         state.optimizer.zero_grad()
-        loss, metrics = loss_fn(batch, generator=generator, draws=draws)
+        loss, metrics = loss_fn(batch, draws=draws)
         loss.backward()
         gnorm = state.optimizer.step()
         if state.ema is not None:
             state.ema.update(state.trainable, state.step,
                              decay=tcfg.ema_decay)
         state.step += 1
+        if group is not None:
+            metrics = mean_over(metrics, group, n)
         return {**metrics, "grad_norm": gnorm}
 
+    step.shard_state = shard_state
     return step
+
+
+def mean_over(metrics: Dict[str, torch.Tensor], group, n: int) -> Dict:
+    """Each 0-dim metric averaged over the group's n ranks (fp32)."""
+    vals = torch.stack([v.detach().float() for v in metrics.values()])
+    dist.all_reduce(vals, group=group)
+    return dict(zip(metrics, vals / n))

@@ -33,8 +33,18 @@ tokenize with the LLaMA tokenizer (the hash fallback without one).
 adapters and mm_projector train. In the finetune and dynamicrafter stages
 `--sample-every N` samples a clip every N steps (DDIM-10 from the batch's
 first conditioning image and frames, the empty prompt, eval mode) into
-loginfo/sample_step<n>.png. Waiting for slice E: multi-device runs (a
-config's `mesh` section may only ask for one device).
+loginfo/sample_step<n>.png.
+
+Across cards, one process per card:
+  torchrun --nproc-per-node N -m open_pandora_tpu_torch.train.trainer ...
+Each process opens the group (parallel.launch.init_distributed: NCCL on
+cuda:LOCAL_RANK, gloo with `--device cpu`) and the config's `mesh`
+(parallel.mesh.build_mesh: data_parallel -1 takes every rank). The global
+batch is batch_size_per_device times the data axis; each rank reads its
+slice of it, the step averages the gradients over the data axis with the
+optimizer state sharded (ZeRO-2, `mesh.shard_opt_state`). Rank 0 alone
+writes the workspace, metrics, sample grids and checkpoints; every rank
+resumes from the same checkpoint.
 """
 
 from __future__ import annotations
@@ -57,9 +67,6 @@ LLM_STAGES = STAGES[1:]
 # settings the config accepts, as the JAX package's does, that no ported
 # code reads, with the reason; run() refuses a value other than the default
 UNREAD = {
-    ("mesh", "data_axis"): "it waits for slice E (multi-GPU)",
-    ("mesh", "model_axis"): "it waits for slice E (multi-GPU)",
-    ("mesh", "shard_opt_state"): "it waits for slice E (multi-GPU)",
     ("train", "cond_frames"): "the JAX package's trainer does not read it "
                               "either",
 }
@@ -107,15 +114,20 @@ def run(argv=None):
     from open_pandora_tpu_torch.core.config import load_config, param_dtype
     from open_pandora_tpu_torch.eval.inference import (build_model,
                                                        load_checkpoint)
+    from open_pandora_tpu_torch.parallel.launch import (init_distributed,
+                                                        is_writer,
+                                                        local_device)
+    from open_pandora_tpu_torch.parallel.mesh import build_mesh
     from open_pandora_tpu_torch.pipeline.chat_wm import (build_world_model,
                                                          debug_world_config)
     from open_pandora_tpu_torch.utils.loggers import MetricsLogger
 
     args = build_parser().parse_args(argv)
-    device = torch.device(args.device)
+    device = local_device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to train on "
                            "the CPU")
+    init_distributed(device)
     if args.tiny:
         cfg = load_config(args.config, args.overrides,
                           base=debug_world_config())
@@ -131,9 +143,6 @@ def run(argv=None):
     stage = tcfg.stage
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; choose one of {STAGES}")
-    if cfg.mesh.model_parallel != 1 or cfg.mesh.data_parallel not in (-1, 1):
-        raise NotImplementedError(f"mesh {cfg.mesh}: more than one device "
-                                  "waits for slice E (multi-GPU)")
     for (section, name), waits in UNREAD.items():
         node = getattr(cfg, section)
         if getattr(node, name) != getattr(type(node)(), name):
@@ -141,8 +150,11 @@ def run(argv=None):
                 f"{section}.{name}={getattr(node, name)!r}: the port does "
                 f"not read this setting ({waits}); leave it at its default")
 
-    ws = init_workspace(args.logdir, args.name, cfg)
-    torch.manual_seed(tcfg.seed)   # the UNet's dropout masks
+    ms = build_mesh(cfg.mesh)
+    writer = is_writer()
+    ws = init_workspace(args.logdir, args.name, cfg, write=writer)
+    # the UNet's dropout masks: one stream per data rank
+    torch.manual_seed(tcfg.seed + ms.data_rank)
     dtype = param_dtype(cfg.dtype_policy)
     gen = torch.Generator(device=device).manual_seed(tcfg.seed)
     if stage in LLM_STAGES:
@@ -152,9 +164,10 @@ def run(argv=None):
         model = build_model(cfg, device=device, dtype=dtype, generator=gen)
     if args.ckpt:
         load_checkpoint(model, args.ckpt)
-    state, step_fn = _stage_step(model, tcfg, stage)
-    log.info("stage=%s device=%s dtype=%s trainable=%d", stage, device,
-             dtype, sum(p.numel() for p in state.trainable.values()))
+    state, step_fn = _stage_step(model, tcfg, stage, ms)
+    log.info("stage=%s device=%s dtype=%s mesh=%dx%d trainable=%d", stage,
+             device, dtype, ms.n_data, ms.n_model,
+             sum(p.numel() for p in state.trainable.values()))
 
     if args.auto_resume:
         latest = find_latest_checkpoint(ws["checkpoints"])
@@ -162,9 +175,11 @@ def run(argv=None):
             log.info("resuming from %s", latest)
             restore_params(latest, state.trainable)
             state.step = int(os.path.basename(latest)[5:])
+    state = step_fn.shard_state(state)
 
-    loader = _loader(args, cfg, tcfg, stage, (height, width), video_len)
-    metrics = MetricsLogger(ws["loginfo"], backends=args.logger)
+    loader = _loader(args, cfg, tcfg, stage, (height, width), video_len, ms)
+    metrics = (MetricsLogger(ws["loginfo"], backends=args.logger)
+               if writer else None)
     gen = torch.Generator(device=device).manual_seed(tcfg.seed)
     t_last, step_last = time.perf_counter(), state.step
     epoch = 0
@@ -179,29 +194,34 @@ def run(argv=None):
                            / (state.step - step_last), **m}
                     t_last, step_last = now, state.step
                     log.info("%s", {"step": state.step, **rec})
-                    metrics.log(state.step, rec)
-                if (args.sample_every and state.step % args.sample_every == 0
+                    if writer:
+                        metrics.log(state.step, rec)
+                if (writer and args.sample_every
+                        and state.step % args.sample_every == 0
                         and stage in ("finetune", "dynamicrafter")):
                     path = sample_grid(
                         state.model, batch, cfg, os.path.join(
                             ws["loginfo"], f"sample_step{state.step}.png"))
                     log.info("sample grid -> %s", path)
-                if state.step % tcfg.ckpt_every == 0:
+                if state.step % tcfg.ckpt_every == 0 and writer:
                     save_params(ws["checkpoints"], state.trainable,
                                 state.step)
                     log.info("checkpoint @ step %d", state.step)
                 if state.step >= tcfg.max_steps:
                     break
             epoch += 1
-        save_params(ws["checkpoints"], state.trainable, state.step)
+        if writer:
+            save_params(ws["checkpoints"], state.trainable, state.step)
     finally:
-        metrics.close()
+        if writer:
+            metrics.close()
     log.info("done at step %d", state.step)
     return state
 
 
-def _stage_step(model, tcfg, stage: str):
-    """(TrainState, step function) of a stage (JAX trainer.py:174-190)."""
+def _stage_step(model, tcfg, stage: str, ms):
+    """(TrainState, step function) of a stage (JAX trainer.py:174-190),
+    over the mesh `ms`; the state is not yet through step.shard_state."""
     from open_pandora_tpu_torch.train.llm_step import (make_llm_sft_step,
                                                        sft_stage)
     from open_pandora_tpu_torch.train.step import (TrainState,
@@ -209,13 +229,13 @@ def _stage_step(model, tcfg, stage: str):
                                                    make_finetune_step,
                                                    make_wm_finetune_step)
     if stage == "alignment":
-        step_fn, key = make_alignment_step(model, tcfg), stage
+        step_fn, key = make_alignment_step(model, tcfg, ms), stage
     elif stage == "finetune":
-        step_fn, key = make_wm_finetune_step(model, tcfg), stage
+        step_fn, key = make_wm_finetune_step(model, tcfg, ms), stage
     elif stage == "llm_sft":
-        step_fn, key = make_llm_sft_step(model, tcfg), sft_stage(model)
+        step_fn, key = make_llm_sft_step(model, tcfg, ms), sft_stage(model)
     else:
-        step_fn, key = make_finetune_step(model, tcfg), stage
+        step_fn, key = make_finetune_step(model, tcfg, mesh_spec=ms), stage
     return TrainState.create(model, key, tcfg), step_fn
 
 
@@ -249,16 +269,19 @@ def sample_grid(model, batch, cfg, path: str) -> str:
     return save_sample_grid(path, video)
 
 
-def _loader(args, cfg, tcfg, stage: str, hw, video_len: int):
-    """The stage's batches (JAX trainer.py:204-239): collated conversations
+def _loader(args, cfg, tcfg, stage: str, hw, video_len: int, ms):
+    """The stage's batches (JAX trainer.py:198-239): collated conversations
     for llm_sft; otherwise WebVid clips from `--meta-path`, or synthetic
-    ones (with LLaMA caption ids in the LLM stages)."""
+    ones (with LLaMA caption ids in the LLM stages). Each is this data
+    rank's slice of a global batch of batch_size_per_device * n_data (the
+    remainder dropped when n_data > 1)."""
     from open_pandora_tpu_torch.data.webvid import (PrefetchLoader,
                                                     SyntheticVideoDataset,
                                                     WebVidDataset)
     from open_pandora_tpu_torch.pipeline.tokenizers import load_tokenizer
 
-    batch = tcfg.batch_size_per_device
+    batch = tcfg.batch_size_per_device * ms.n_data
+    shard = (ms.data_rank, ms.n_data)
     if stage == "llm_sft":
         from open_pandora_tpu_torch.data.sft import (ConversationDataset,
                                                      synthetic_conversations)
@@ -271,7 +294,8 @@ def _loader(args, cfg, tcfg, stage: str, hw, video_len: int):
 
         class SFTLoader:
             def epoch(self, _epoch):
-                return ds.batches(batch, cfg, bucket=32)
+                return ds.batches(batch, cfg, bucket=32,
+                                  drop_remainder=ms.n_data > 1, shard=shard)
         return SFTLoader()
     llm = stage in LLM_STAGES
     if args.synthetic_data or not args.meta_path:
@@ -286,7 +310,7 @@ def _loader(args, cfg, tcfg, stage: str, hw, video_len: int):
                            fixed_fps=tcfg.fixed_fps, seed=tcfg.seed)
     return PrefetchLoader(
         ds, batch, text_len=cfg.clip_text.context_length,
-        llm_tokenizer=load_tokenizer() if llm else None)
+        llm_tokenizer=load_tokenizer() if llm else None, shard=shard)
 
 
 def main(argv=None) -> int:
