@@ -93,11 +93,31 @@ Phases, each printing its own lines and raising on failure:
               dynamicrafter step at 320x512 under configs/finetune.yaml's
               mesh (DDP + ZeRO-2, then with FSDP) and train.trainer.run
               of it for 2 steps (metrics and checkpoint checked),
-              the LLaMA-7B prefill under tensor parallelism (1024 rows)
-              and sp_llama_prefill on phase 7's round-2 prompt (384 rows);
-              each held to its one-device call of the same seed (max|d|),
-              with wall seconds and peak memory beside the one-device
-              call's, and launches against it
+              the LLaMA-7B prefill under tensor parallelism (1024 rows),
+              in bf16 and with the int8 layout, and sp_llama_prefill on
+              phase 7's round-2 prompt (384 rows); each held to its
+              one-device call of the same seed (max|d|), with wall
+              seconds and peak memory beside the one-device call's, and
+              launches against it
+ 12. decode   LLaMAConfig() in bf16, then quantized on the card to int8,
+              then to NF4 (models/quant.py), one at a time: weight bytes,
+              the prefill of phase 7's round-2 prompt plus 128 text rows
+              (512 rows: the flash route), greedy_generate of 32 tokens
+              (its prefill and its decode loop timed apart, the loop
+              twice), ms per token and launches per token
+              (torch.profiler), the peak while quantizing and while
+              decoding; first-token logits against bf16; the bf16 KV
+              decode's first 8 steps against a re-prefill of prompt +
+              tokens by phase 3's rule, the fp32 reference on the plain
+              attention route. Then cli.build_chat with --quantize-llm (int8) and
+              cli.run of two actions at 320x512, DDIM-4 (seconds by part,
+              launches against the routing, peak) and the last round's
+              conditioning with --quantize-llm nf4; the answer runners'
+              cores (eval/chatunivi_qa, scienceqa, consistency) on the
+              full-width WorldModel, 16 new tokens, their records' fields;
+              EVA-ViT-g at full width on 1 and 17 images (ms, peak); the
+              narrow WorldModel of phase 4 with the EVA tower and with
+              the text transformer over the connector, card against CPU
 The last three lines are the card's name and power limit, the kernels'
 JSON summary and the run's JSON result.
 """
@@ -405,6 +425,9 @@ def check_flash(summary: dict, device, gen) -> None:
         (2, 1100, 1000, 4, 128, bf16, True),    # causal, N > M: rows with
         (2, 1100, 1000, 4, 128, f32, True),     # no allowed key
         (1, 384, 384, 32, 128, bf16, True),     # LLaMA's causal prefill
+        (1, 512, 512, 32, 128, bf16, True),     # phase 12's decode prefill
+        (1, 520, 520, 32, 128, bf16, True),     # and its re-prefill check
+        (1, 1024, 1024, 32, 128, bf16, True),   # phase 11's TP prefill
         # attn1 of a 576x1024 training step (unfused route), levels 0-2
         (16, 9216, 9216, 5, 64, bf16, False),
         (16, 2304, 2304, 10, 64, bf16, False),
@@ -1329,12 +1352,13 @@ def narrow_world_config():
                                     proj_out_dim=64))
 
 
-def check_world(device, seed: int) -> None:
+def check_world(device, seed: int, cfg=None, variant: str = "clip") -> None:
     """fp32: the narrow WorldModel's conditioning of a 2-round prompt (an
     image, then 16 frames as a video, bucketed texts) on the card against
     the same weights on the CPU; the cluster indices of the image cascade
     and the video's clustered tokens first, since one moved index would
-    show as a large gap."""
+    show as a large gap. `cfg` defaults to narrow_world_config();
+    `variant` names it in the log."""
     from open_pandora_tpu_torch.models.cluster import (cluster_dpc_knn,
                                                        merge_tokens,
                                                        project_video_tokens)
@@ -1342,7 +1366,7 @@ def check_world(device, seed: int) -> None:
                                                            round1_prompt)
     from open_pandora_tpu_torch.pipeline.chat_wm import build_world_model
 
-    cfg = narrow_world_config()
+    cfg = cfg or narrow_world_config()
     cpu = build_world_model(cfg, device="cpu",
                             generator=torch.Generator().manual_seed(seed + 6))
     card = copy.deepcopy(cpu).to(device)
@@ -1384,7 +1408,8 @@ def check_world(device, seed: int) -> None:
           and v_err <= WORLD_BOUND_REL * v_scale
           and c_err <= WORLD_BOUND_REL * c_scale)
     log("model", json.dumps({
-        "dtype": "float32", "world": True, "conditioning": list(cc.shape),
+        "dtype": "float32", "world": True, "variant": variant,
+        "conditioning": list(cc.shape),
         "cluster_indices_equal": same, "video_tokens_max_abs_err": v_err,
         "video_tokens_scale": v_scale, "conditioning_max_abs_err": c_err,
         "conditioning_scale": c_scale, "bound_rel": WORLD_BOUND_REL,
@@ -3015,11 +3040,12 @@ def _multi_trainer(seed: int, count) -> dict:
 def _multi_llama(device, cfg, seed: int, prompt_path: str, count) -> dict:
     """The LLaMA-7B (random weights, bf16) prefill: phase 7's round-2
     prompt on the ring (sp_llama_prefill), then TP_ROWS rows of embedded
-    random ids under tensor parallelism, each against the one-device
-    trunk."""
+    random ids under tensor parallelism, bf16 and then int8, each against
+    the one-device trunk."""
     from open_pandora_tpu_torch.core.config import MeshConfig
     from open_pandora_tpu_torch.core.init import init_random_
     from open_pandora_tpu_torch.models.llama import LlamaForCausalLM
+    from open_pandora_tpu_torch.models.quant import quantize_llama_
     from open_pandora_tpu_torch.parallel.mesh import build_mesh
     from open_pandora_tpu_torch.parallel.sp import sp_llama_prefill
     from open_pandora_tpu_torch.parallel.tp import shard_llama_
@@ -3064,7 +3090,416 @@ def _multi_llama(device, cfg, seed: int, prompt_path: str, count) -> dict:
         if not d <= MULTI_FWD_REL * ref[0].abs().max().item() or \
                 got[3] != ref[3] or got[3]["flash"] != n_layers:
             raise AssertionError("TP prefill != one device")
+        # the int8 layout (column weights and scales split, row weights
+        # split with scales whole) on the same weights, quantized on the card
+        del llama, ref, got
+        torch.cuda.empty_cache()
+        with torch.device("meta"):
+            llama = LlamaForCausalLM(cfg.llama)
+        llama = llama.to(torch.bfloat16).to_empty(device=device).eval()
+        init_random_(llama,
+                     torch.Generator(device=device).manual_seed(seed + 24))
+        quantize_llama_(llama, "int8")
+        ref = _measured(lambda: llama.trunk(emb))
+        shard_llama_(ms, llama)
+        got = _measured(lambda: llama.trunk(emb))
+        count(got)
+        d = _max_abs(got[0], ref[0])
+        out["tp_int8"] = _pair("tp_int8_prefill", ref, got, {
+            "rows": TP_ROWS, "max_abs_diff": d,
+            "scale": ref[0].abs().max().item()})
+        if not d <= MULTI_FWD_REL * ref[0].abs().max().item() or \
+                got[3] != ref[3] or got[3]["flash"] != n_layers:
+            raise AssertionError("int8 TP prefill != one device")
     return out
+
+
+# -- phase 12: decoding, the quantized LLaMA, the answer runners, EVA -----------
+
+DECODE_KEYS = EVAL_KEYS         # the prefill (row 1) and the quantized round
+DECODE_ROWS = 512     # phase 7's 384-row round-2 prompt + 128 text rows:
+                      # the flash gate (512 rows) takes the prefill
+DECODE_TOKENS = 32
+DECODE_CHECK_STEPS = 8
+QUANT_STEPS = 4
+QA_NEW_TOKENS = 16
+EVA_CONFIG = dict(width=1408, layers=39, heads=16, tower_type="eva_vit_g",
+                  mlp_ratio=4.3637)
+# the records' fields, as the JAX package's runners write them
+QA_FIELDS = {"id", "question", "answer"}
+SQA_FIELDS = {"question_id", "prompt", "text", "answer_id", "model_id",
+              "pred", "metadata"}
+CONSISTENCY_FIELDS = {"video_name", "prompt_1", "text_1", "prompt_2",
+                      "text_2", "answer_id", "model_id", "answer", "metadata"}
+
+
+def _llama_7b(device, seed: int, quantize=False):
+    """LLaMAConfig() in bf16 with random weights from `seed` on the card,
+    then quantized there (the weights are the same for every mode).
+    Returns the model and a record: the float weights' bytes, the seconds
+    and the peak bytes of the quantization."""
+    from open_pandora_tpu_torch.core.config import LLaMAConfig
+    from open_pandora_tpu_torch.core.init import init_random_
+    from open_pandora_tpu_torch.models.llama import LlamaForCausalLM
+    from open_pandora_tpu_torch.models.quant import (quantize_llama_,
+                                                     tree_nbytes)
+
+    with torch.device("meta"):
+        llama = LlamaForCausalLM(LLaMAConfig())
+    llama = llama.to(torch.bfloat16).to_empty(device=device).eval()
+    init_random_(llama, torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"float_bytes": tree_nbytes(llama)}
+    t0 = time.perf_counter()
+    quantize_llama_(llama, quantize)
+    torch.cuda.synchronize()
+    rec.update(quantize_s=time.perf_counter() - t0,
+               quantize_peak_bytes=torch.cuda.max_memory_allocated())
+    # each float weight is freed as it is quantized: the peak stays near
+    # the float model's bytes, never the float and the quantized model's
+    if quantize and rec["quantize_peak_bytes"] > 1.2 * rec["float_bytes"]:
+        raise AssertionError(f"quantizing peaked at "
+                             f"{rec['quantize_peak_bytes']} B")
+    return llama, rec
+
+
+def decode_launches(llama, tok, pos: int, cache) -> dict:
+    """The device operations (kernels, copies, memsets) of one decode
+    step, from torch.profiler (None where it shows no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_pandora_tpu_torch.models.llama_generate import decode_step
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode_step(llama, tok, pos, cache)
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    return {"device_ops_per_token": ops or None}
+
+
+def _decode_mode(device, seed: int, mode, prompt: torch.Tensor,
+                 ids: torch.Tensor, count) -> tuple:
+    """One LLaMA-7B mode on phase 7's prompt followed by the embedded
+    `ids`: weight bytes, greedy_generate's prefill and its decode loop
+    (run twice on the one cache) timed apart with CUDA events, launches
+    per token, peaks, first-token logits."""
+    from open_pandora_tpu_torch.models.llama_generate import (
+        decode_tokens, greedy_generate, prefill_cache)
+    from open_pandora_tpu_torch.models.quant import tree_nbytes
+
+    llama, rec = _llama_7b(device, seed, mode)
+    rec = {"mode": mode or "bf16", "weight_bytes": tree_nbytes(llama), **rec}
+    with torch.no_grad():
+        prompt = torch.cat([prompt.to(device, torch.bfloat16),
+                            llama.embed(ids.to(device))], 1)
+        L = prompt.shape[1]
+        greedy_generate(llama, prompt, max_new_tokens=2)        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        # greedy_generate, split at the end of its prefill
+        ev[0].record()
+        last, cache = prefill_cache(llama, prompt, L + DECODE_TOKENS)
+        first = llama.lm_head(last)
+        tok0 = first.argmax(dim=-1)
+        ev[1].record()
+        torch.cuda.synchronize()
+        prefill_launches = read_launches()
+        runs = []
+        for a, b in ((2, 3), (4, 5)):
+            ev[a].record()
+            runs.append(decode_tokens(llama, tok0, cache, L, DECODE_TOKENS))
+            ev[b].record()
+        torch.cuda.synchronize()
+        got = read_launches()
+        count(got)
+        # DECODE_TOKENS - 1 decode steps a run
+        per_token = [ev[a].elapsed_time(ev[b]) / (DECODE_TOKENS - 1)
+                     for a, b in ((2, 3), (4, 5))]
+        toks = runs[0]
+        rec.update(
+            prefill_rows=L, prefill_ms=ev[0].elapsed_time(ev[1]),
+            tokens=DECODE_TOKENS, ms_per_token=sum(per_token) / 2,
+            ms_per_token_runs=per_token,
+            ms_per_token_spread=abs(per_token[0] - per_token[1]),
+            runs_agree=bool(torch.equal(runs[0], runs[1])),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            prefill_flash_launches=prefill_launches["flash"],
+            launches=got, first_tokens=toks[0, :8].tolist(),
+            **decode_launches(llama, toks[:, 0], L, cache))
+        first = first.float()
+    rec["weight_bound_ms_per_token"] = (rec["weight_bytes"] / HBM_BYTES_PER_S
+                                        * 1e3)
+    return rec, llama, first, prompt
+
+
+def _decode_against_naive(llama, prompt: torch.Tensor) -> dict:
+    """The KV decode's logits at its first steps against a re-prefill of
+    prompt + tokens, both in bf16, held by phase 3's rule to the
+    re-prefill in fp32: within twice the bf16 re-prefill's distance from
+    it plus 1% of its mean |value|. The fp32 re-prefill passes an
+    all-True attention mask, which sends it to the plain attention route:
+    the reference launches no kernel."""
+    from open_pandora_tpu_torch.models.llama_generate import (decode_step,
+                                                              prefill_cache)
+
+    L, n = prompt.shape[1], DECODE_CHECK_STEPS
+    with torch.no_grad():
+        last, cache = prefill_cache(llama, prompt, L + n)
+        tok = llama.lm_head(last).argmax(-1)
+        toks, kv = [], []
+        for i in range(n):
+            toks.append(tok)
+            kv.append(decode_step(llama, tok, L + i, cache).float())
+            tok = kv[-1].argmax(-1)
+        seq = torch.cat([prompt, llama.embed(torch.stack(toks, 1))], 1)
+
+        def naive(mask=None):
+            h = llama.trunk(seq, attention_mask=mask)
+            return [llama.lm_head(h[:, L + i]).float() for i in range(n)]
+        bf = naive()
+        llama.float()          # bf16 -> fp32 -> bf16 is exact
+        seq = seq.float()
+        ref = naive(torch.ones(seq.shape[:2], dtype=torch.bool,
+                               device=seq.device))
+        llama.to(torch.bfloat16)
+    worst, ok = [], True
+    for a, b, r in zip(kv, bf, ref):
+        err = (a - r).abs().max().item()
+        bound = 2 * (b - r).abs().max().item() + 1e-2 * r.abs().mean().item()
+        worst.append({"err": err, "bound": bound,
+                      "kv_vs_bf16_naive": (a - b).abs().max().item()})
+        ok &= err <= bound
+    return {"steps": n, "ok": ok, "by_step": worst}
+
+
+def run_decode(device, seed: int, prompt: torch.Tensor) -> dict:
+    """Phase 12; `prompt` is phase 7's round-2 prompt (1, 384, 4096).
+    Returns the launches of its main-path runs."""
+    total = dict.fromkeys(KERNEL_KEYS, 0)
+
+    def count(got):
+        for k in KERNEL_KEYS:
+            total[k] += got[k]
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    # 1. LLaMA-7B in bf16, int8 and NF4, one at a time, on one prompt
+    ids = torch.randint(3, 32000, (1, DECODE_ROWS - prompt.shape[1]),
+                        generator=torch.Generator().manual_seed(seed + 30))
+    firsts, recs = {}, []
+    for mode in (False, "int8", "nf4"):
+        t0 = time.perf_counter()
+        rec, llama, first, full = _decode_mode(device, seed + 31, mode,
+                                               prompt, ids, count)
+        firsts[rec["mode"]] = first
+        if mode is False:
+            rec["decode_vs_naive"] = _decode_against_naive(llama, full)
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["card"] = card
+        recs.append(rec)
+        log("decode", json.dumps(rec))
+        if not bool(torch.isfinite(first).all()) or \
+                rec["prefill_flash_launches"] != len(llama.model.layers):
+            raise AssertionError(f"{rec['mode']}: non-finite logits or "
+                                 "a prefill off the flash route")
+        del llama, full
+        torch.cuda.empty_cache()
+    ref = firsts["bf16"]
+    errs = {m: (firsts[m] - ref).abs().max().item() / ref.abs().max().item()
+            for m in ("int8", "nf4")}
+    log("decode", json.dumps({"first_token_logits_rel_err_vs_bf16": errs,
+                              "card": card}))
+    if not recs[0]["decode_vs_naive"]["ok"]:
+        raise AssertionError("KV decode != re-prefill by the bf16 rule")
+
+    # 2. the quantized session: cli.build_chat --quantize-llm, two actions
+    quant = run_quant_session(device, seed, count)
+    # 3. the answer runners' cores on the full-width WorldModel (bf16)
+    qa = run_runners(device, seed)
+    # 4. EVA-ViT-g at full width
+    eva = run_eva(device, seed)
+    log("decode", json.dumps({
+        "phase_s": time.perf_counter() - t_phase, "launches": total,
+        "card": card, "session": quant, "runners_s": qa, "eva": eva}))
+    if min(total[k] for k in DECODE_KEYS) <= 0:
+        raise AssertionError("a kernel of the path never launched")
+    return total
+
+
+def run_quant_session(device, seed: int, count) -> dict:
+    """cli.build_chat with --quantize-llm (int8) at 320x512, cli.run of
+    two actions at DDIM-4: seconds by part, launches against the routing,
+    peak; then the last round's conditioning with an NF4 LLaMA."""
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.models.quant import tree_nbytes
+    from open_pandora_tpu_torch.pipeline import cli
+
+    cfg = PandoraConfig()
+    argv = ["--image", "unused.png", "--action", ENTRY_ACTIONS[0],
+            "--action", ENTRY_ACTIONS[1], "--ddim-steps", str(QUANT_STEPS),
+            "--seed", str(seed)]
+    out = {}
+    for mode in ("int8", "nf4"):
+        args = cli.build_parser().parse_args(argv + ["--quantize-llm", mode])
+        t0 = time.perf_counter()
+        chat = cli.build_chat(args)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"mode": mode, "built_s": built,
+               "llama_bytes": tree_nbytes(chat.wm.llama.model.layers)
+               + tree_nbytes(chat.wm.llama.lm_head),
+               "world_bytes": tree_nbytes(chat.wm),
+               "allocated_after_build": torch.cuda.memory_allocated()}
+        if mode == "int8":
+            image = np.random.default_rng(seed + 20).integers(
+                0, 256, (360, 640, 3), dtype=np.uint8)
+            want = {k: sum(predicted_round(cfg, args.height, args.width,
+                                           QUANT_STEPS, c)[k]
+                           for c in (1, 4)) for k in KERNEL_KEYS}
+            reset_launches()
+            frames = cli.run(chat, image, args)
+            got = read_launches()
+            count(got)
+            prompt = chat.prompt
+            with torch.no_grad():
+                cond_int8 = chat.wm.get_diffusion_conditioning(prompt)
+            rec.update(rounds=[dict(r) for r in chat.round_times],
+                       frames=list(frames.shape), std=float(frames.std()),
+                       launches=got, predicted=want,
+                       peak_bytes=torch.cuda.max_memory_allocated())
+            if got != want:
+                raise AssertionError(f"int8 session: launches {got} != "
+                                     f"{want}")
+            if frames.shape != (2 * cfg.unet.temporal_length - 4, args.height,
+                                args.width, 3) or float(frames.std()) == 0.0:
+                raise AssertionError(f"bad frames {frames.shape}")
+        else:
+            images = prompt.images
+            with torch.no_grad():
+                t1 = time.perf_counter()
+                cond = chat.wm.get_diffusion_conditioning(prompt)
+                torch.cuda.synchronize()
+            rec.update(
+                conditioning_s=time.perf_counter() - t1,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                prompt_images=list(images.shape),
+                rel_diff_vs_int8=((cond.float() - cond_int8.float())
+                                  .abs().max() / cond_int8.float().abs().max()
+                                  ).item())
+            if not bool(torch.isfinite(cond).all()) or \
+                    cond.shape != cond_int8.shape:
+                raise AssertionError("NF4 conditioning not finite")
+        log("decode", json.dumps(rec))
+        out[mode] = rec
+        del chat
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_runners(device, seed: int) -> dict:
+    """The answer runners' cores on the full-width WorldModel (bf16 LLaMA,
+    random weights): an image question and a 16-frame video question
+    (chatunivi_qa), a two-stage question with letters (scienceqa), a
+    sample of two questions (consistency); each record has the JAX
+    runner's fields."""
+    from open_pandora_tpu_torch.eval import chatunivi_qa, consistency, \
+        scienceqa
+
+    t0 = time.perf_counter()
+    wm, tok, _, _ = chatunivi_qa.setup_model(device="cuda")
+    torch.cuda.synchronize()
+    times = {"built_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(seed + 32)
+    image = rng.integers(0, 256, (360, 640, 3), dtype=np.uint8)
+    frames = rng.integers(0, 256, (16, 240, 320, 3), dtype=np.uint8)
+    calls = [
+        ("qa_image", QA_FIELDS, lambda: chatunivi_qa.answer_question(
+            wm, tok, {"id": 1, "text": "What is in the image?"}, image,
+            QA_NEW_TOKENS)),
+        ("qa_video", QA_FIELDS, lambda: chatunivi_qa.answer_question(
+            wm, tok, {"question_id": 2, "question": "What happens?"},
+            frames, QA_NEW_TOKENS)),
+        ("scienceqa", SQA_FIELDS, lambda: scienceqa.answer_question(
+            wm, tok, {"id": "s1", "conversations": [{"value": (
+                "<image>\nWhich is a vehicle? (A) a car (B) a tree "
+                "(C) a cloud")}]}, image, max_new_tokens=QA_NEW_TOKENS)),
+        ("consistency", CONSISTENCY_FIELDS, lambda: consistency.answer_sample(
+            wm, tok, {"video_name": "v0", "Q1": "What moves?",
+                      "Q2": "What is moving in the video?", "A": "a car"},
+            frames, 0, max_new_tokens=QA_NEW_TOKENS))]
+    for name, fields, call in calls:
+        t1 = time.perf_counter()
+        rec = call()
+        torch.cuda.synchronize()
+        times[name + "_s"] = time.perf_counter() - t1
+        log("decode", json.dumps({"runner": name, "record": rec}))
+        texts = [rec[k] for k in ("answer", "text", "text_1", "text_2")
+                 if k in rec]
+        if set(rec) != fields or not all(texts):
+            raise AssertionError(f"{name}: record {rec}")
+    del wm
+    torch.cuda.empty_cache()
+    return times
+
+
+def run_eva(device, seed: int) -> dict:
+    """EVA-ViT-g at full width (1408 wide, 39 blocks, 16 heads of 88),
+    bf16, random weights, on 1 and 17 images: ms (CUDA events) and peak;
+    then phase 4's narrow WorldModel with the EVA tower and with the text
+    transformer over the connector, card against CPU in fp32."""
+    from open_pandora_tpu_torch.core.config import CLIPTowerConfig
+    from open_pandora_tpu_torch.core.init import init_random_
+    from open_pandora_tpu_torch.models.eva_tower import EVAVisionTower
+
+    cfg = CLIPTowerConfig(**EVA_CONFIG)
+    with torch.device("meta"):
+        tower = EVAVisionTower(cfg)
+    tower = tower.to(torch.bfloat16).to_empty(device=device).eval()
+    init_random_(tower, torch.Generator(device=device).manual_seed(seed + 33))
+    out = {"parameters": sum(p.numel() for p in tower.parameters()),
+           "blocks_run": tower.n_run}
+    for n in (1, 17):
+        x = torch.randn(n, 224, 224, 3, device=device, dtype=torch.bfloat16,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(seed + 34))
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: tower(x), warmup=1, iters=3)
+            y = tower(x)
+        out[f"images_{n}"] = {"ms": ms, "peak_bytes":
+                              torch.cuda.max_memory_allocated(),
+                              "shape": list(y.shape)}
+        if y.shape != (n, 256, 1408) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"EVA output {y.shape}")
+    log("decode", json.dumps({"eva_vit_g": out, "card": card_line()}))
+    del tower
+    torch.cuda.empty_cache()
+    check_world(device, seed, eva_narrow_world_config(), "eva_vit_g")
+    check_world(device, seed, text_encoder_narrow_world_config(),
+                "diffusion_text_encoder")
+    return out
+
+
+def eva_narrow_world_config():
+    import dataclasses
+    cfg = narrow_world_config()
+    return dataclasses.replace(cfg, clip_tower=dataclasses.replace(
+        cfg.clip_tower, tower_type="eva_vit_g", mlp_ratio=4.3637))
+
+
+def text_encoder_narrow_world_config():
+    import dataclasses
+    cfg = narrow_world_config()
+    return dataclasses.replace(cfg, connector=dataclasses.replace(
+        cfg.connector, use_diffusion_text_encoder=True))
 
 
 def main(argv=None) -> int:
@@ -3131,6 +3566,7 @@ def main(argv=None) -> int:
     paths["train_hires"] = run_train_hires(device, args.seed)
     torch.cuda.empty_cache()
     paths["multi"] = run_multi(args.seed, prompts[-1])
+    paths["decode"] = run_decode(device, args.seed, prompts[-1])
 
     # launches: the main paths' runs together, and each on its own
     kernels_line = {"kernels": [

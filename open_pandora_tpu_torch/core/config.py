@@ -109,15 +109,10 @@ class CLIPTowerConfig:
     layers: int = 24
     heads: int = 16
     select_layer: int = -2
-    # "clip" (shipped); the JAX package's "eva_vit_g" waits for a later slice
+    # "clip" (shipped) or a name starting "eva_vit_g" (models/eva_tower.py;
+    # EVA-ViT-g: width 1408, 39 layers, 16 heads, mlp_ratio 4.3637)
     tower_type: str = "clip"
     mlp_ratio: float = 4.0
-
-    def __post_init__(self):
-        if self.tower_type != "clip":
-            raise NotImplementedError(
-                f"tower_type={self.tower_type!r}: the EVA tower waits for "
-                "the eval-and-tools slice; this slice ports 'clip'")
 
 
 @dataclass(frozen=True)
@@ -174,14 +169,9 @@ class ConnectorConfig:
     qformer_proj_dim: int = 768     # 4096 -> 768
     proj_out_dim: int = 1024        # 768 -> 1024 (the UNet's context dim)
     use_image_prefix: bool = True
+    # a causal CLIP text transformer over the connector output
+    # (models/encoders.CLIPTextEmbeddingEncoder; no shipped config sets it)
     use_diffusion_text_encoder: bool = False
-
-    def __post_init__(self):
-        if self.use_diffusion_text_encoder:
-            raise NotImplementedError(
-                "use_diffusion_text_encoder=True: the CLIP text transformer "
-                "over the connector output waits for the eval-and-tools "
-                "slice (no shipped config sets it)")
 
 
 @dataclass(frozen=True)

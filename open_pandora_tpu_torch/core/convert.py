@@ -7,10 +7,16 @@ np.ndarray}: the dict `convert_dynamicrafter` reads, and the dict this
 package's DynamiCrafter loads with load_state_dict(strict=True). A tree
 that also holds the LLM-side families ('llama', 'clip_tower',
 'mm_projector', 'connector') is the WorldModel's: the result is the dict
-`convert_world_model` reads and this package's WorldModel loads.
+`convert_world_model` reads and this package's WorldModel loads: with the
+EVA tower (`tower_type` "eva_vit_g"), the text transformer over the
+connector ('text_embedding_encoder') and a weight-only quantized LLaMA
+(models/quant.py) as the WorldModel of that config builds them.
 
 Leaf transforms (each the inverse of the forward converter's):
   Dense kernel (in, out)  -> Linear weight (out, in)   [Conv1d k=1: (out, in, 1)]
+  int8 kernel_q (in, out), scale (out,) -> weight_q (out, in), scale
+  NF4 kernel_p (in/2, out), absmax (in/64, out) -> weight_p (out, in/2),
+      absmax (out, in/64); the two codes of a byte stay as they are
   conv2d kernel HWIO      -> weight OIHW
   conv3d kernel DHWIO     -> weight OIDHW
   norm scale / bias       -> weight / bias   [RMSNorm: scale -> weight]
@@ -31,6 +37,14 @@ def _a(x) -> np.ndarray:
 
 
 def linear(out: Flat, prefix: str, p: Mapping, conv1d: bool = False) -> None:
+    if "kernel_q" in p:
+        out[f"{prefix}.weight_q"] = _a(_a(p["kernel_q"]).T)
+        out[f"{prefix}.scale"] = _a(p["scale"])
+        return
+    if "kernel_p" in p:
+        out[f"{prefix}.weight_p"] = _a(_a(p["kernel_p"]).T)
+        out[f"{prefix}.absmax"] = _a(_a(p["absmax"]).T)
+        return
     w = _a(p["kernel"]).T
     out[f"{prefix}.weight"] = _a(w[:, :, None] if conv1d else w)
     if "bias" in p:
@@ -317,6 +331,33 @@ def clip_tower(out: Flat, params: Mapping, prefix: str) -> None:
         i += 1
 
 
+def eva_tower(out: Flat, params: Mapping, prefix: str) -> None:
+    """models.eva_tower.EVAVisionTower params -> the reference EVA keys."""
+    p = params["params"]
+    conv2d(out, f"{prefix}.patch_embed.proj", p["patch_embed"])
+    out[f"{prefix}.cls_token"] = _a(p["cls_token"])
+    out[f"{prefix}.pos_embed"] = _a(p["pos_embed"])
+    i = 0
+    while f"blocks_{i}" in p:
+        bp, q = f"{prefix}.blocks.{i}", p[f"blocks_{i}"]
+        norm(out, f"{bp}.norm1", q["norm1"])
+        norm(out, f"{bp}.norm2", q["norm2"])
+        out[f"{bp}.attn.qkv.weight"] = _a(_a(q["qkv_kernel"]).T)
+        out[f"{bp}.attn.q_bias"] = _a(q["q_bias"])
+        out[f"{bp}.attn.v_bias"] = _a(q["v_bias"])
+        linear(out, f"{bp}.attn.proj", q["proj"])
+        linear(out, f"{bp}.mlp.fc1", q["mlp_fc1"])
+        linear(out, f"{bp}.mlp.fc2", q["mlp_fc2"])
+        i += 1
+
+
+def text_embedding_encoder(out: Flat, params: Mapping, prefix: str) -> None:
+    """models.encoders.CLIPTextEmbeddingEncoder params -> its resblocks
+    and ln_final under `prefix`."""
+    norm(out, f"{prefix}.ln_final", params["params"]["ln_final"])
+    _resblocks(out, prefix, params["params"])
+
+
 def qformer(out: Flat, p: Mapping, prefix: str) -> None:
     """models.connector.QFormer params (no 'params' level) -> HF
     Blip2QFormerModel keys."""
@@ -354,6 +395,7 @@ def connector(out: Flat, params: Mapping) -> None:
 # -- composite ----------------------------------------------------------------
 
 _TOWER = "video_model.model.vision_tower.vision_tower.vision_model"
+_EVA_TOWER = "video_model.model.vision_tower.vision_tower"
 
 
 def state_dict_from_jax(params: Mapping, cfg) -> Flat:
@@ -372,8 +414,14 @@ def state_dict_from_jax(params: Mapping, cfg) -> Flat:
     resampler(out, params["resampler"], f"{pre}image_proj_model")
     if world:
         llama(out, params["llama"], "video_model.model")
-        clip_tower(out, params["clip_tower"], _TOWER)
+        if cfg.clip_tower.tower_type.startswith("eva_vit_g"):
+            eva_tower(out, params["clip_tower"], _EVA_TOWER)
+        else:
+            clip_tower(out, params["clip_tower"], _TOWER)
         linear(out, "video_model.model.mm_projector",
                params["mm_projector"]["params"]["proj"])
         connector(out, params["connector"])
+        if "text_embedding_encoder" in params:
+            text_embedding_encoder(out, params["text_embedding_encoder"],
+                                   "diffusion_text_encoder")
     return out

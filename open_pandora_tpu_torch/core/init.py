@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from open_pandora_tpu_torch.models.llama import LoRALinear
+from open_pandora_tpu_torch.models.llama import LoRAAdapter
 from open_pandora_tpu_torch.models.lora import is_adapter
 
 
@@ -40,6 +40,6 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         else:                    # biases, class embedding, gates
             p.normal_(0.0, 0.02, generator=generator)
     for m in model.modules():
-        if isinstance(m, LoRALinear):
+        if isinstance(m, LoRAAdapter):
             m.reset_adapter(generator)
     return model

@@ -1,5 +1,6 @@
 """Frozen conditioning encoders: OpenCLIP ViT-H text and vision towers and
-the Perceiver Resampler.
+the Perceiver Resampler; and the CLIP text transformer over input
+embeddings that `use_diffusion_text_encoder` puts after the connector.
 
 Counterpart of open_pandora_tpu/models/encoders.py. Parameter names follow
 the open_clip state dict (`transformer.resblocks.0.attn.in_proj_weight`,
@@ -118,6 +119,25 @@ class CLIPTextEncoder(nn.Module):
 
     def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
         x = self.token_embedding(token_ids) + self.positional_embedding
+        for blk in self.transformer.resblocks:
+            x = blk(x, causal=True)
+        return self.ln_final(x)
+
+
+class CLIPTextEmbeddingEncoder(nn.Module):
+    """JAX `CLIPTextEmbeddingEncoder` (reference CLIPTextEmbeddingModel):
+    all `layers` causal blocks over input embeddings (b, n, width), no
+    token or position embedding added, then `ln_final`. Parameters under
+    `transformer.resblocks.i` and `ln_final`, as the text tower's."""
+
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.transformer = _Transformer(cfg.width, cfg.heads, cfg.layers)
+        self.ln_final = LayerNorm(cfg.width)
+
+    def forward(self, inputs_embeds: torch.Tensor) -> torch.Tensor:
+        x = inputs_embeds.to(self.ln_final.weight.dtype)
         for blk in self.transformer.resblocks:
             x = blk(x, causal=True)
         return self.ln_final(x)

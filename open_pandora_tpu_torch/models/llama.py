@@ -1,19 +1,24 @@
 """LLaMA-7B trunk, prefill-oriented.
 
-Counterpart of open_pandora_tpu/models/llama.py (without its int8 and NF4
-projections, which wait for the quantization slice). HF LLaMA semantics:
+Counterpart of open_pandora_tpu/models/llama.py. HF LLaMA semantics:
 RMSNorm eps 1e-6 (fp32 statistics, the scale after the cast back), rotary
 embeddings over the full head width in two contiguous halves, SwiGLU MLP,
 pre-norm residual blocks. The world model calls the bare trunk on spliced
 input embeddings and reads hidden states only; `lm_head` serves the SFT
 loss (train/llm_step.py). With `lora_rank > 0` every projection but
 `lm_head` is a `LoRALinear` (JAX `LoRADense`): the frozen base plus a
-low-rank adapter.
+low-rank adapter. With `quantize` "int8" (or True) or "nf4" every
+projection, lm_head included, is weight-only quantized (models/quant.py:
+`Int8Linear`, `NF4Linear`; JAX `Int8Dense`, `Int4Dense`), a LoRA
+projection over such a base too. `models.quant.quantize_llama_` turns a
+float model into that layout.
 
 Module and parameter names follow the HF state dict
 (`model.embed_tokens.weight`, `model.layers.0.self_attn.q_proj.weight`,
 `model.norm.weight`, `lm_head.weight`); an adapter adds `….q_proj.lora_a`
-(in, r) and `….q_proj.lora_b` (r, out), the JAX package's layout.
+(in, r) and `….q_proj.lora_b` (r, out), the JAX package's layout; a
+quantized projection holds `….weight_q` and `….scale`, or `….weight_p`
+and `….absmax`, in place of `….weight`.
 
 Token ids: <image> = 32000 (= vocab_size, the splice marker), [IMG_P] =
 32001 (the connector's learned-prefix slots).
@@ -30,6 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from open_pandora_tpu_torch.core.config import LLaMAConfig
+from open_pandora_tpu_torch.models.quant import (QUANT_LINEAR, Int8Linear,
+                                                 NF4Linear, quant_mode)
 from open_pandora_tpu_torch.ops.attention import attention
 from open_pandora_tpu_torch.ops.norms import rms_norm
 
@@ -64,18 +71,17 @@ def rotary_embed(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-class LoRALinear(nn.Linear):
-    """A frozen bias-free projection plus a low-rank adapter:
-    y = x Wᵀ + ((x A) B) α/r (PEFT semantics: A Kaiming-uniform on fan_in,
-    B zeros, so the delta starts at 0). AB is never formed. No LoRA
-    dropout, as in the JAX package's deterministic SFT step."""
+class LoRAAdapter:
+    """A low-rank adapter over a frozen bias-free base projection (the
+    class it is mixed into): y = base(x) + ((x A) B) α/r (PEFT semantics:
+    A Kaiming-uniform on fan_in, B zeros, so the delta starts at 0). AB is
+    never formed. No LoRA dropout, as in the JAX package's deterministic
+    SFT step."""
 
-    def __init__(self, in_features: int, out_features: int, rank: int,
-                 alpha: float):
-        super().__init__(in_features, out_features, bias=False)
+    def _add_adapter(self, rank: int, alpha: float) -> None:
         self.rank, self.alpha = rank, alpha
-        self.lora_a = nn.Parameter(torch.empty(in_features, rank))
-        self.lora_b = nn.Parameter(torch.empty(rank, out_features))
+        self.lora_a = nn.Parameter(torch.empty(self.in_features, rank))
+        self.lora_b = nn.Parameter(torch.empty(rank, self.out_features))
         self.reset_adapter()
 
     @torch.no_grad()
@@ -91,22 +97,63 @@ class LoRALinear(nn.Linear):
         return super().forward(x) + delta * (self.alpha / self.rank)
 
 
-def _proj(cfg: LLaMAConfig, d_in: int, d_out: int) -> nn.Linear:
-    """JAX `_proj`: a LoRALinear when cfg.lora_rank > 0, else plain."""
-    if cfg.lora_rank:
-        return LoRALinear(d_in, d_out, cfg.lora_rank, cfg.lora_alpha)
+class LoRALinear(LoRAAdapter, nn.Linear):
+    """JAX `LoRADense` over a float base."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 alpha: float):
+        nn.Linear.__init__(self, in_features, out_features, bias=False)
+        self._add_adapter(rank, alpha)
+
+
+class LoRAInt8Linear(LoRAAdapter, Int8Linear):
+    """JAX `LoRADense` over an int8 base."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 alpha: float):
+        Int8Linear.__init__(self, in_features, out_features)
+        self._add_adapter(rank, alpha)
+
+
+class LoRANF4Linear(LoRAAdapter, NF4Linear):
+    """JAX `LoRADense` over an NF4 base."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 alpha: float):
+        NF4Linear.__init__(self, in_features, out_features)
+        self._add_adapter(rank, alpha)
+
+
+LORA_LINEAR = {False: LoRALinear, "int8": LoRAInt8Linear,
+               "nf4": LoRANF4Linear}
+
+
+def _base_linear(d_in: int, d_out: int, quantize) -> nn.Module:
+    """JAX `_base_dense`: plain, int8 or NF4."""
+    if quantize:
+        return QUANT_LINEAR[quant_mode(quantize)](d_in, d_out)
     return nn.Linear(d_in, d_out, bias=False)
 
 
+def _proj(cfg: LLaMAConfig, d_in: int, d_out: int, quantize=False
+          ) -> nn.Module:
+    """JAX `_proj`: a LoRA projection when cfg.lora_rank > 0, else the
+    base alone."""
+    if cfg.lora_rank:
+        return LORA_LINEAR[quantize](d_in, d_out, cfg.lora_rank,
+                                     cfg.lora_alpha)
+    return _base_linear(d_in, d_out, quantize)
+
+
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LLaMAConfig):
+    def __init__(self, cfg: LLaMAConfig, quantize=False):
         super().__init__()
         self.heads, self.theta = cfg.num_heads, cfg.rope_theta
         d = cfg.hidden_size
-        self.q_proj = _proj(cfg, d, d)
-        self.k_proj = _proj(cfg, d, d)
-        self.v_proj = _proj(cfg, d, d)
-        self.o_proj = _proj(cfg, d, d)
+        self.q_proj = _proj(cfg, d, d, quantize)
+        self.k_proj = _proj(cfg, d, d, quantize)
+        self.v_proj = _proj(cfg, d, d, quantize)
+        self.o_proj = _proj(cfg, d, d, quantize)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -122,25 +169,25 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LLaMAConfig):
+    def __init__(self, cfg: LLaMAConfig, quantize=False):
         super().__init__()
         d, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = _proj(cfg, d, m)
-        self.up_proj = _proj(cfg, d, m)
-        self.down_proj = _proj(cfg, m, d)
+        self.gate_proj = _proj(cfg, d, m, quantize)
+        self.up_proj = _proj(cfg, d, m, quantize)
+        self.down_proj = _proj(cfg, m, d, quantize)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LLaMAConfig):
+    def __init__(self, cfg: LLaMAConfig, quantize=False):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.self_attn = LlamaAttention(cfg)
+        self.self_attn = LlamaAttention(cfg, quantize)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
                                                 cfg.rms_norm_eps)
-        self.mlp = LlamaMLP(cfg)
+        self.mlp = LlamaMLP(cfg, quantize)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -152,10 +199,10 @@ class LlamaTrunk(nn.Module):
     """The bare LlamaModel: input embeddings (b, n, hidden) -> hidden
     states. Holds the embedding table, as HF's does."""
 
-    def __init__(self, cfg: LLaMAConfig):
+    def __init__(self, cfg: LLaMAConfig, quantize=False):
         super().__init__()
         self.embed_tokens = nn.Embedding(cfg.total_vocab, cfg.hidden_size)
-        self.layers = nn.ModuleList(LlamaLayer(cfg)
+        self.layers = nn.ModuleList(LlamaLayer(cfg, quantize)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
@@ -179,14 +226,15 @@ class LlamaTrunk(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """Trunk, embedding and lm_head. The conditioning path calls `embed`
-    and `trunk` only."""
+    and `trunk` only. `quantized` is False, "int8" or "nf4"."""
 
-    def __init__(self, cfg: LLaMAConfig):
+    def __init__(self, cfg: LLaMAConfig, quantize=False):
         super().__init__()
         self.cfg = cfg
-        self.model = LlamaTrunk(cfg)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.total_vocab,
-                                 bias=False)
+        self.quantized = quant_mode(quantize)
+        self.model = LlamaTrunk(cfg, self.quantized)
+        self.lm_head = _base_linear(cfg.hidden_size, cfg.total_vocab,
+                                    self.quantized)
 
     def embed(self, token_ids: torch.Tensor) -> torch.Tensor:
         return self.model.embed_tokens(token_ids)

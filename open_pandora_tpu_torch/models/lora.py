@@ -45,16 +45,16 @@ def add_lora_params(plain: StateDict, lora_template: StateDict) -> StateDict:
 def merge_lora_params(lora: StateDict, alpha: float, rank: int
                       ) -> StateDict:
     """Deployment merge: W' = W + (A B)ᵀ α/r, the adapters dropped, the
-    plain layout restored. An int8 base is refused: merge before
-    quantization."""
+    plain layout restored. A quantized base (int8 or NF4) is refused, as
+    in the JAX package: merge before quantization."""
     scale = alpha / rank
     out = {k: v for k, v in lora.items() if not is_adapter(k)}
     for key in lora:
         if not key.endswith(".lora_a"):
             continue
         stem = key[:-len(".lora_a")]
-        w = lora[f"{stem}.weight"]
-        if not w.is_floating_point():
+        w = lora.get(f"{stem}.weight")
+        if w is None or not w.is_floating_point():
             raise ValueError("merge LoRA before int8 quantization")
         delta = (lora[key] @ lora[f"{stem}.lora_b"]).T * scale
         out[f"{stem}.weight"] = (w + delta).to(w.dtype)
@@ -65,28 +65,31 @@ def merge_lora_params(lora: StateDict, alpha: float, rank: int
 def add_lora_(llama: nn.Module, rank: int, alpha: float,
               generator: Optional[torch.Generator] = None) -> nn.Module:
     """add_lora_params on a built model: every target projection of a
-    plain LLaMA (`models.llama.LlamaForCausalLM`) becomes a LoRALinear
-    that holds the same weight tensor, its adapters freshly initialised
-    (from `generator`, on the weights' device) and in the weights' dtype;
-    the model's config then asks for the rank. In place; returns
-    `llama`."""
-    from open_pandora_tpu_torch.models.llama import LoRALinear
+    LLaMA without adapters (`models.llama.LlamaForCausalLM`, float or
+    quantized) becomes a LoRA projection that holds the same base tensors,
+    its adapters freshly initialised (from `generator`) on the model's
+    device and in its dtype (the norms'); the model's config then asks
+    for the rank. In place; returns `llama`."""
+    from open_pandora_tpu_torch.models.llama import LORA_LINEAR
 
+    dtype, dev = llama.model.norm.weight.dtype, llama.model.norm.weight.device
     for layer in llama.model.layers:
         for parent in (layer.self_attn, layer.mlp):
             for name in LORA_TARGETS:
                 base = getattr(parent, name, None)
                 if base is None:
                     continue
-                w = base.weight
                 with torch.device("meta"):
-                    lora = LoRALinear(w.shape[1], w.shape[0], rank, alpha)
+                    lora = LORA_LINEAR[llama.quantized](
+                        base.in_features, base.out_features, rank, alpha)
                 lora.lora_a = nn.Parameter(torch.empty(
-                    lora.lora_a.shape, dtype=w.dtype, device=w.device))
+                    lora.lora_a.shape, dtype=dtype, device=dev))
                 lora.lora_b = nn.Parameter(torch.empty(
-                    lora.lora_b.shape, dtype=w.dtype, device=w.device))
+                    lora.lora_b.shape, dtype=dtype, device=dev))
                 lora.reset_adapter(generator)
-                lora.weight = w
+                for key, t in [*base._parameters.items(),
+                               *base._buffers.items()]:
+                    setattr(lora, key, t)
                 setattr(parent, name, lora)
     llama.cfg = dataclasses.replace(llama.cfg, lora_rank=rank,
                                     lora_alpha=alpha)

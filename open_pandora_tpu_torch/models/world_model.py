@@ -15,6 +15,15 @@ Counterpart of open_pandora_tpu/models/world_model.py:
 Prompts are built on the host as typed segments (tokens, image, video,
 prefix), so the spliced layout is known before anything runs.
 
+`quantize_llm` ("int8", True or "nf4") builds the LLaMA's projections
+weight-only quantized (models/quant.py), the layout a quantized state dict
+loads into; `models.quant.quantize_llama_(wm.llama, mode)` quantizes a
+built float model in place (pipeline/chat_wm.build_world_model does, after
+the weights exist). `tower_type` "eva_vit_g..." takes the EVA-ViT-g tower
+(models/eva_tower.py) in place of the CLIP one, and
+`use_diffusion_text_encoder` a causal CLIP text transformer over the
+connector's output (`diffusion_text_encoder`).
+
 The module's state dict has the released checkpoint's keys
 (`video_model.model.layers.0.…`, `video_model.model.vision_tower.
 vision_tower.vision_model.…`, `video_model.model.mm_projector.weight`,
@@ -42,6 +51,8 @@ from open_pandora_tpu_torch.models.cluster import (project_image_tokens,
 from open_pandora_tpu_torch.models.connector import Connector
 from open_pandora_tpu_torch.models.dynamicrafter import (DynamiCrafter,
                                                          _Prefix)
+from open_pandora_tpu_torch.models.encoders import CLIPTextEmbeddingEncoder
+from open_pandora_tpu_torch.models.eva_tower import EVAVisionTower
 from open_pandora_tpu_torch.models.llama import LlamaForCausalLM
 
 
@@ -101,7 +112,8 @@ class MultimodalPrompt:
 
 
 class MMProjector(nn.Linear):
-    """mm_projector: Linear(tower width -> LLM hidden)."""
+    """mm_projector: Linear(tower width (1024 CLIP, 1408 EVA) -> LLM
+    hidden)."""
 
 
 _CONNECTOR_KEYS = ("image_prefix", "diffusion_qformer_proj",
@@ -130,20 +142,24 @@ class WorldModel(nn.Module):
 
     def __init__(self, cfg: PandoraConfig, quantize_llm=False):
         super().__init__()
-        if quantize_llm:
-            raise NotImplementedError(
-                f"quantize_llm={quantize_llm!r}: weight-only int8/NF4 LLaMA "
-                "waits for the quantization slice; bf16 is what this one "
-                "runs")
         self.cfg = cfg
         self.diffusion_model = DynamiCrafter(cfg)
-        self.video_model = LlamaForCausalLM(cfg.llama)
+        self.video_model = LlamaForCausalLM(cfg.llama, quantize_llm)
         trunk = self.video_model.model
-        trunk.vision_tower = _Prefix(vision_tower=_Prefix(
-            vision_model=CLIPVisionTower(cfg.clip_tower)))
+        # the tower by name (ChatUniVi multimodal_encoder/builder.py): the
+        # EVA tower's keys sit directly under vision_tower.vision_tower
+        if cfg.clip_tower.tower_type.startswith("eva_vit_g"):
+            trunk.vision_tower = _Prefix(
+                vision_tower=EVAVisionTower(cfg.clip_tower))
+        else:
+            trunk.vision_tower = _Prefix(vision_tower=_Prefix(
+                vision_model=CLIPVisionTower(cfg.clip_tower)))
         trunk.mm_projector = MMProjector(cfg.clip_tower.width,
                                          cfg.llama.hidden_size)
         self.connector = Connector(cfg.connector, cfg.qformer)
+        if cfg.connector.use_diffusion_text_encoder:
+            self.diffusion_text_encoder = CLIPTextEmbeddingEncoder(
+                cfg.clip_text)
         self.register_state_dict_post_hook(_connector_keys_out)
         self.register_load_state_dict_pre_hook(_connector_keys_in)
 
@@ -157,8 +173,18 @@ class WorldModel(nn.Module):
         return self.video_model
 
     @property
-    def clip_tower(self) -> CLIPVisionTower:
-        return self.video_model.model.vision_tower.vision_tower.vision_model
+    def clip_tower(self) -> Union[CLIPVisionTower, EVAVisionTower]:
+        tower = self.video_model.model.vision_tower.vision_tower
+        return getattr(tower, "vision_model", tower)
+
+    @property
+    def text_embedding_encoder(self) -> Optional[CLIPTextEmbeddingEncoder]:
+        return getattr(self, "diffusion_text_encoder", None)
+
+    @property
+    def quantize_llm(self):
+        """False, "int8" or "nf4": the LLaMA's projections as they are."""
+        return self.video_model.quantized
 
     @property
     def mm_projector(self) -> MMProjector:
@@ -273,6 +299,8 @@ class WorldModel(nn.Module):
         stacked = torch.stack([hidden[:, s:s + n] for s, n in spans], dim=1)
         b, R = stacked.shape[:2]                      # (b, R, 64, hidden)
         cond = self.connector(stacked.flatten(0, 1))
+        if self.text_embedding_encoder is not None:
+            cond = self.text_embedding_encoder(cond)
         if timings is not None:
             timings.update(prefill_s=t1 - t0,
                            connector_s=_mark(timings, dev) - t1,

@@ -17,8 +17,11 @@ port's trainer, whose parameters are loaded over those random weights.
 32x32 frames, at most 2 DDIM steps) on the same code path. Reading the
 image needs PIL and writing the mp4 OpenCV, each imported then: `run`,
 the rounds themselves, takes and returns NumPy arrays and needs neither.
-`--quantize-llm` is accepted as the JAX parser accepts it and refused:
-weight-only LLaMA quantization is not ported yet.
+`--quantize-llm [int8|nf4]` quantizes the LLaMA's projections weight-only
+(models/quant.py) once the weights exist, after `--ckpt` is loaded or the
+random weights drawn. The JAX package's quantized random init is codes 0
+and scales 1, every projection 0; here the random float LLaMA is
+quantized, so the numbers stay non-degenerate.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--quantize-llm", nargs="?", const="int8",
                    choices=["int8", "nf4"], default=False,
-                   help="weight-only LLaMA quantization (not ported yet)")
+                   help="weight-only LLaMA quantization (int8 or nf4)")
     p.add_argument("--debug", action="store_true",
                    help="tiny config + random weights smoke mode")
     p.add_argument("--device", default="cuda")
@@ -71,30 +74,30 @@ def load_weights(wm, path: str) -> None:
         load_checkpoint(wm, path)
 
 
-def build_chat(args):
-    """The ChatWM session of parsed CLI arguments (shared with
-    pipeline/server.py)."""
+def build_world(args):
+    """(WorldModel, height, width) of parsed arguments: `debug`, `device`,
+    `ckpt`, `quantize_llm`, and where the parser has them `height`,
+    `width` and `bf16` (shared with pipeline/server.py and the eval
+    runners)."""
     from open_pandora_tpu_torch.core.config import PandoraConfig
-    from open_pandora_tpu_torch.pipeline.chat_wm import (ChatWM,
-                                                         build_world_model,
+    from open_pandora_tpu_torch.models.quant import quantize_llama_
+    from open_pandora_tpu_torch.pipeline.chat_wm import (build_world_model,
                                                          debug_world_config)
-    from open_pandora_tpu_torch.pipeline.tokenizers import load_tokenizer
 
-    if getattr(args, "quantize_llm", False):
-        raise NotImplementedError(
-            f"--quantize-llm {args.quantize_llm}: weight-only LLaMA "
-            "quantization (models/quant.py) is not ported yet (ROADMAP "
-            "queue 1 item 4); run without it")
     device = torch.device(args.device)
     if args.debug:
         cfg, dtype, (height, width) = (debug_world_config(), torch.float32,
                                        (32, 32))
-        args.ddim_steps = min(args.ddim_steps, 2)
     else:
-        cfg, (height, width) = PandoraConfig(), (args.height, args.width)
-        dtype = torch.bfloat16 if args.bf16 else torch.float32
+        cfg = PandoraConfig()
+        height, width = getattr(args, "height", 320), getattr(args, "width",
+                                                               512)
+        dtype = (torch.bfloat16 if getattr(args, "bf16", True)
+                 else torch.float32)
+    quantize = getattr(args, "quantize_llm", False)
     print(f"[cli] building WorldModel ({'debug-tiny' if args.debug else 'full'}"
-          f", {dtype}, {device})", flush=True)
+          f", {dtype}, {device}"
+          f"{f', LLaMA {quantize}' if quantize else ''})", flush=True)
     wm = build_world_model(cfg, device=device, dtype=dtype,
                            generator=torch.Generator(device=device)
                            .manual_seed(0))
@@ -102,6 +105,19 @@ def build_chat(args):
         load_weights(wm, args.ckpt)
     else:
         print("[cli] NO CHECKPOINT: random weights (smoke mode)", flush=True)
+    quantize_llama_(wm.llama, quantize)
+    return wm, height, width
+
+
+def build_chat(args):
+    """The ChatWM session of parsed CLI arguments (shared with
+    pipeline/server.py)."""
+    from open_pandora_tpu_torch.pipeline.chat_wm import ChatWM
+    from open_pandora_tpu_torch.pipeline.tokenizers import load_tokenizer
+
+    wm, height, width = build_world(args)
+    if args.debug:
+        args.ddim_steps = min(args.ddim_steps, 2)
     return ChatWM(wm, tokenizer=load_tokenizer(args.tokenizer),
                   height=height, width=width)
 

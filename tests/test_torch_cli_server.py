@@ -1,6 +1,6 @@
 """PyTorch port, the user's entry points against the JAX package (CPU):
-pipeline/cli.py (the parser, --debug to an mp4, --ckpt, the refused
---quantize-llm) and pipeline/server.py (the page, the multipart parser, the
+pipeline/cli.py (the parser, --debug to an mp4, --ckpt, --quantize-llm
+int8 and nf4) and pipeline/server.py (the page, the multipart parser, the
 HTTP round trip with an injected generate_fn and with a ChatWM session);
 and every module of this slice importing and running where jax, the JAX
 package, OpenCV, PIL and pandas cannot be imported."""
@@ -70,12 +70,54 @@ def test_parser_matches_jax(argv):
     assert ours == vars(jcli.build_parser().parse_args(argv))
 
 
-def test_quantize_llm_is_refused():
-    args = cli.build_parser().parse_args(
-        ["--image", "a.png", "--action", "go", "--quantize-llm", "--debug",
-         "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        cli.build_chat(args)
+@pytest.mark.parametrize("mode", ["int8", "nf4"])
+def test_quantize_llm_builds_a_quantized_chat(mode):
+    """--quantize-llm on the debug chat: the random float LLaMA quantized
+    once its weights exist. Its codes are the JAX package's
+    quantize_llama_params of the same float weights, bit for bit, its
+    trunk is the JAX quantized trunk's within 1e-4, and the session runs
+    a round."""
+    import jax
+    import jax.numpy as jnp
+    from open_pandora_tpu.core.convert import convert_llama
+    from open_pandora_tpu.models.llama import LlamaForCausalLM as JaxLlama
+    from open_pandora_tpu.models.quant import quantize_llama_params
+    from open_pandora_tpu_torch.core.convert import llama as llama_from_jax
+    from torch_parity import jax_sub_config
+
+    argv = ["--image", "a.png", "--action", "go", "--debug", "--device",
+            "cpu", "--ddim-steps", "1"]
+    args = cli.build_parser().parse_args(argv + ["--quantize-llm", mode])
+    chat = cli.build_chat(args)
+    llama = chat.wm.llama
+    assert chat.wm.quantize_llm == llama.quantized == mode
+    assert not [n for n, _ in llama.named_parameters()
+                if n.startswith("model.layers.") and n.endswith("_proj.weight")
+                or n == "lm_head.weight"]
+    # the CLIP tower under llama.model keeps its float projections
+    assert llama.model.vision_tower.vision_tower.vision_model.encoder \
+        .layers[0].self_attn.q_proj.bias is not None
+    float_wm = cli.build_chat(cli.build_parser().parse_args(argv)).wm
+    flat = {k: v.numpy() for k, v in float_wm.llama.state_dict().items()}
+    cfg = chat.wm.cfg.llama
+    jparams = quantize_llama_params(convert_llama(flat, cfg.num_layers), mode)
+    want = {}
+    llama_from_jax(want, jparams, "model")
+    got = {k: v for k, v in llama.state_dict().items()
+           if not k.startswith(("model.vision_tower.", "model.mm_projector."))}
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    x = np.random.default_rng(62).standard_normal(
+        (1, 9, cfg.hidden_size)).astype(np.float32)
+    ref = np.asarray(JaxLlama(jax_sub_config(cfg), quantized=mode).apply(
+        jax.tree_util.tree_map(jnp.asarray, jparams), jnp.asarray(x),
+        method=JaxLlama.trunk))
+    with torch.no_grad():
+        out = llama.trunk(torch.from_numpy(x)).numpy()
+    assert np.abs(out - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
+    frames = cli.run(chat, np.zeros((40, 48, 3), np.uint8) + 90, args)
+    assert frames.shape == (4, 32, 32, 3)
 
 
 @pytest.mark.parametrize("mode", ["RGB", "RGBA", "L", "P"])
@@ -261,7 +303,9 @@ def test_chatwm_generate_fn_serves_mp4(tmp_path):
 NEW_MODULES = ["native", "pipeline.cli", "pipeline.server",
                "utils.image_grid", "utils.loggers", "utils.video_io",
                "data.webvid", "data.sft", "train.trainer", "models.unet3d",
-               "core.flags", "core.checkpoint"]
+               "core.flags", "core.checkpoint", "models.quant",
+               "models.llama_generate", "models.eva_tower",
+               "eval.chatunivi_qa", "eval.scienceqa", "eval.consistency"]
 
 GUARD = """
 import io, json, sys, threading, urllib.request
@@ -292,6 +336,18 @@ for call, name in ((lambda: video_io.write_video("o.mp4", frames), "cv2"),
     except ImportError as e:
         assert name in str(e), e
 assert not video_io.HAVE_CV2
+from open_pandora_tpu_torch.eval import chatunivi_qa, consistency, scienceqa
+wm, tok, _, _ = chatunivi_qa.setup_model(debug=True, device="cpu",
+                                         quantize_llm="nf4")
+img = np.zeros((40, 48, 3), np.uint8) + 50
+rec = chatunivi_qa.answer_question(wm, tok, {{"id": 1, "text": "hi"}}, img, 3)
+assert len(rec["answer"].split()) == 3, rec
+rec = scienceqa.answer_question(wm, tok, {{"id": "s", "conversations": [
+    {{"value": "(A) a (B) b"}}]}}, img, max_new_tokens=2)
+assert rec["pred"] in "AB", rec
+rec = consistency.answer_sample(wm, tok, {{"video_name": "v", "Q1": "a",
+    "Q2": "b", "A": "c"}}, np.stack([img] * 4), 0, max_new_tokens=2)
+assert rec["text_1"] and rec["text_2"], rec
 bad = [m for m in sys.modules if sys.modules[m] is not None
        and m.split(".")[0] in ("jax", "open_pandora_tpu", "cv2", "PIL",
                                "pandas")]
@@ -302,10 +358,11 @@ print("guard ok")
 
 def test_new_modules_need_neither_jax_nor_optional_packages(tmp_path):
     """In a process where jax, the JAX package, OpenCV, PIL and pandas
-    cannot be imported: every module of this slice imports, the server
+    cannot be imported: every module of these slices imports, the server
     answers /health, cli.run runs a two-round --debug session on the CPU
     and its sample grid is written (the stdlib PNG); writing an mp4 and
-    decoding an image raise ImportError naming the package."""
+    decoding an image raise ImportError naming the package; each answer
+    runner's core answers on an NF4 debug WorldModel."""
     imports = "\n".join(f"import open_pandora_tpu_torch.{m}"
                         for m in NEW_MODULES)
     png = tmp_path / "grid.png"

@@ -215,14 +215,78 @@ def test_random_init_leaves_nothing_zero(world_params):
         assert torch.isfinite(p).all() and float(p.abs().max()) > 0, name
 
 
-@pytest.mark.parametrize("make,slice_", [
-    (lambda: tcfg.CLIPTowerConfig(tower_type="eva_vit_g"), "EVA"),
-    (lambda: tcfg.ConnectorConfig(use_diffusion_text_encoder=True),
-     "eval-and-tools"),
-    (lambda: __import__(
-        "open_pandora_tpu_torch.models.world_model", fromlist=["WorldModel"]
-    ).WorldModel(tcfg.PandoraConfig(), quantize_llm="int8"), "quantization"),
-])
-def test_waiting_llm_paths_name_their_slice(make, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        make()
+def _llm_path_case(kind):
+    """(port cfg, JAX WorldModel, its seeded params) of the debug world
+    with the EVA tower, the text transformer, or the int8 LLaMA (the
+    float tree quantized by the JAX package's quantize_llama_params)."""
+    from open_pandora_tpu.models.quant import quantize_llama_params
+    from open_pandora_tpu.models.world_model import WorldModel as JaxWM
+    from open_pandora_tpu_torch.pipeline.chat_wm import debug_world_config
+
+    cfg = debug_world_config()
+    if kind == "eva_vit_g":
+        cfg = dataclasses.replace(cfg, clip_tower=dataclasses.replace(
+            cfg.clip_tower, tower_type="eva_vit_g", mlp_ratio=4.3637))
+    if kind == "text_encoder":
+        cfg = dataclasses.replace(cfg, connector=dataclasses.replace(
+            cfg.connector, use_diffusion_text_encoder=True))
+    quant = "int8" if kind == "int8" else False
+    jmodel = JaxWM(jax_config(cfg), quantize_llm=quant)
+    shapes = jax.eval_shape(functools.partial(
+        JaxWM(jax_config(cfg)).init_params, height=32, width=32),
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(2)
+    params = jtu.tree_map(
+        lambda s: (rng.standard_normal(s.shape) * 0.2).astype(np.float32),
+        shapes)
+    if quant:
+        params["llama"] = quantize_llama_params(params["llama"], quant)
+    return cfg, jmodel, params
+
+
+@pytest.mark.parametrize("kind", ["eva_vit_g", "text_encoder", "int8"])
+def test_llm_paths_build_and_match_jax(kind):
+    """The three config paths that the port refused before it had them
+    (tower_type="eva_vit_g", use_diffusion_text_encoder=True,
+    quantize_llm="int8") build, load `state_dict_from_jax` strictly, and
+    hold the JAX package's outputs: the tower's features, the text
+    transformer's output, the quantized trunk's hidden states."""
+    import jax.numpy as jnp
+    from open_pandora_tpu.models.llama import LlamaForCausalLM as JaxLlama
+    from open_pandora_tpu_torch.models.world_model import WorldModel
+
+    cfg, jmodel, params = _llm_path_case(kind)
+    sd = state_dict_from_jax(params, cfg)
+    with torch.device("meta"):
+        wm = WorldModel(cfg, quantize_llm="int8" if kind == "int8" else False)
+    wm = wm.to_empty(device="cpu").eval()
+    wm.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                       strict=True)
+    rng = np.random.default_rng(3)
+    p = jtu.tree_map(jnp.asarray, params)
+    if kind == "eva_vit_g":
+        x = rng.standard_normal((2, 56, 56, 3)).astype(np.float32)
+        ref = jmodel.encode_tower(p, jnp.asarray(x))
+        with torch.no_grad():
+            out = wm.encode_tower(torch.from_numpy(x))
+        assert "video_model.model.vision_tower.vision_tower.blocks.0.attn." \
+            "q_bias" in sd
+    elif kind == "text_encoder":
+        x = rng.standard_normal((2, 7, 64)).astype(np.float32)
+        ref = jmodel.text_embedding_encoder.apply(
+            p["text_embedding_encoder"], jnp.asarray(x))
+        with torch.no_grad():
+            out = wm.text_embedding_encoder(torch.from_numpy(x))
+        assert "diffusion_text_encoder.ln_final.weight" in sd
+    else:
+        x = rng.standard_normal((1, 9, 64)).astype(np.float32)
+        ref = jmodel.llama.apply(p["llama"], jnp.asarray(x),
+                                 method=JaxLlama.trunk)
+        with torch.no_grad():
+            out = wm.llama.trunk(torch.from_numpy(x))
+        assert wm.quantize_llm == "int8"
+        assert sd["video_model.model.layers.0.mlp.up_proj.weight_q"].dtype \
+            == np.int8
+    assert out.shape == ref.shape
+    assert float(np.abs(out.numpy() - np.asarray(ref)).max()) <= \
+        1e-4 * max(1.0, float(np.abs(np.asarray(ref)).max()))
