@@ -118,7 +118,26 @@ Phases, each printing its own lines and raising on failure:
               EVA-ViT-g at full width on 1 and 17 images (ms, peak); the
               narrow WorldModel of phase 4 with the EVA tower and with
               the text transformer over the connector, card against CPU
-The last three lines are the card's name and power limit, the kernels'
+ 13. tools    this slice's modules: (a) eval.vbench.run on the full-width
+              PandoraConfig() WorldModel (bf16, 320x512, cli.build_chat):
+              two metadata items with synthetic uint8 crops, 2 samples
+              each at DDIM-4, seconds per clip by part, launches against
+              the routing, the four file names, a sample run again to
+              equal frames and seeds 0 and 1 apart; (b) tools.fused_drift
+              at full width, 320x512, DDIM-2, with the upcast fp32 run
+              as witness: every value finite, the routes within 8% of
+              each other, the fused route no more than 1.5x the unfused
+              route's distance from fp32; (c)
+              tools.profile_unet (3 calls) and tools.clip_ab (DDIM-2 and
+              DDIM-4): ms per CFG eval and the slope per DDIM step; (d) the
+              alternative encoders (models/encoders_extra.py) at their
+              full-size defaults in bf16 (ms, peak), then at narrow widths
+              in fp32, card against CPU; (e) tools.hires_train_probe at
+              576x1024, 2 steps, adamw8bit and then adamw: seconds per
+              step and peak beside phase 10's; (f) tools.activation_dump on phase 4's
+              narrow UNet (8x8 latent), card against CPU: the largest
+              relative row
+The run's wall time, then the last three lines are the card's name and power limit, the kernels'
 JSON summary and the run's JSON result.
 """
 
@@ -215,6 +234,10 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {key: fn.launches for key, fn in wrappers().items()}
+
+
+# readings one phase keeps for a later one to print beside its own
+READINGS = {}
 
 
 def log(phase: str, msg: str) -> None:
@@ -2731,6 +2754,9 @@ def run_train_hires(device, seed: int) -> dict:
         reports.append(rep)
         for k in KERNEL_KEYS:
             total[k] += launches[k]
+    READINGS["train_hires"] = {
+        "sec_per_step": reports[0]["sec_per_step"],
+        "max_memory_allocated_steps": reports[0]["max_memory_allocated_steps"]}
     l0, l1 = reports[0]["loss"][0], reports[1]["loss"][0]
     if not abs(l1 - l0) <= 1e-3 * abs(l0):
         raise AssertionError(f"first losses {l0} and {l1} differ")
@@ -3502,6 +3528,311 @@ def text_encoder_narrow_world_config():
         cfg.connector, use_diffusion_text_encoder=True))
 
 
+# -- phase 13: the last slice's modules: vbench, the tools, the encoders ------
+
+TOOLS_HW = (320, 512)
+HIRES_PROBE_HW = (576, 1024)
+VBENCH_STEPS = 4
+VBENCH_ITEMS = ({"image_name": "0.png",
+                 "prompt_en": "a car drives along the coastal road"},
+                {"image_name": "1.png",
+                 "prompt_en": "a boat sails across the harbour"})
+TOOLS_KEYS = EVAL_KEYS      # vbench's rounds; fused_drift, profile_unet
+# fused_drift at full width, DDIM-2: the bf16 routes' rel_mean from each
+# other, at most twice the first reading (3.76% z, 4.26% frames, NVIDIA
+# H100 80GB HBM3, 700 W); and the fused route no farther from the upcast
+# fp32 run than DRIFT_BOUND_RATIO times the unfused route is
+DRIFT_BOUND_REL = 0.08
+DRIFT_BOUND_RATIO = 1.5
+
+
+def _launched(total: dict) -> dict:
+    """Add the launches since the last reset to `total`; return them."""
+    got = read_launches()
+    for k in KERNEL_KEYS:
+        total[k] += got[k]
+    reset_launches()
+    return got
+
+
+def run_tools(device, seed: int) -> dict:
+    """Phase 13: (a) vbench, (b) fused_drift, (c) profile_unet and clip_ab,
+    (d) the alternative encoders, (e) the latent step at 576x1024, (f) an
+    activation dump, card against CPU."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNEL_KEYS, 0)
+    reset_launches()
+    _tools_vbench(device, seed, total)
+    _tools_timing(device, total)
+    _tools_encoders(device, seed, total)
+    _tools_hires(device, total)
+    _tools_activations(device, seed, total)
+    log("tools", json.dumps({"phase_s": time.perf_counter() - t_phase,
+                             "launches": total, "card": card_line()}))
+    if min(total[k] for k in TOOLS_KEYS) <= 0:
+        raise AssertionError("a kernel of the path never launched")
+    return total
+
+
+def _tools_vbench(device, seed: int, total: dict) -> None:
+    """(a) eval.vbench.run on the full-width WorldModel: 2 items x 2
+    samples at DDIM-4, then item 0's sample 0 again."""
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.eval import vbench
+    from open_pandora_tpu_torch.pipeline import cli
+
+    args = vbench.build_parser().parse_args(
+        ["--vbench-data", "-", "--save-dir", "-", "--n-samples", "2",
+         "--ddim-steps", str(VBENCH_STEPS), "--height", str(TOOLS_HW[0]),
+         "--width", str(TOOLS_HW[1])])
+    cfg = PandoraConfig()
+    t0 = time.perf_counter()
+    chat = cli.build_chat(args)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 40)
+    images = {m["image_name"]: rng.integers(0, 256, (360, 640, 3),
+                                            dtype=np.uint8)
+              for m in VBENCH_ITEMS}
+    clip = predicted_round(cfg, *TOOLS_HW, VBENCH_STEPS, 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    clips, frames = [], {}
+    t0 = time.perf_counter()
+    for name, f in vbench.run(chat, list(VBENCH_ITEMS), images, args):
+        torch.cuda.synchronize()
+        clips.append({"name": name, "wall_s": time.perf_counter() - t0,
+                      **chat.round_times[-1]})
+        frames[name] = f
+        t0 = time.perf_counter()
+    m0 = VBENCH_ITEMS[0]
+    again = chat.generate_video(images[m0["image_name"]], m0["prompt_en"],
+                                ddim_steps=VBENCH_STEPS, fs=args.fs,
+                                guidance_scale=args.ugs, eta=args.eta,
+                                seed=0)
+    got = _launched(total)
+    want = {k: 5 * clip[k] for k in KERNEL_KEYS}
+    names = [c["name"] for c in clips]
+    n0 = vbench.clip_name(m0["prompt_en"], 0, 2)
+    n1 = vbench.clip_name(m0["prompt_en"], 1, 2)
+    rep = {"built_s": built, "clips": clips, "names": names,
+           "frames": list(again.shape),
+           "same_seed_equal": bool(np.array_equal(again, frames[n0])),
+           "seeds_0_1_differ": not np.array_equal(frames[n0], frames[n1]),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": got, "predicted": want, "card": card_line()}
+    log("tools", json.dumps({"vbench": rep}))
+    if names != [vbench.clip_name(m["prompt_en"], s, 2)
+                 for m in VBENCH_ITEMS for s in range(2)]:
+        raise AssertionError(f"vbench names {names}")
+    if got != want:
+        raise AssertionError(f"vbench launches {got} != {want}")
+    if not (rep["same_seed_equal"] and rep["seeds_0_1_differ"]) or \
+            again.shape != (cfg.unet.temporal_length, *TOOLS_HW, 3):
+        raise AssertionError(f"vbench frames {rep}")
+    del chat
+    torch.cuda.empty_cache()
+
+
+def _tools_timing(device, total: dict) -> None:
+    """(b) fused_drift, (c) profile_unet and clip_ab at full width."""
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.tools import clip_ab, fused_drift, \
+        profile_unet
+
+    cfg = PandoraConfig()
+    h, w = TOOLS_HW
+    t0 = time.perf_counter()
+    drift = fused_drift.fused_drift(cfg, device, ddim_steps=2, height=h,
+                                    width=w, fp32_reference=True)
+    drift.update(wall_s=time.perf_counter() - t0,
+                 launches=_launched(total), card=card_line(),
+                 bound_rel=DRIFT_BOUND_REL, bound_ratio=DRIFT_BOUND_RATIO)
+    log("tools", json.dumps({"fused_drift": drift}))
+    ref = drift["fp32_reference"]
+    reports = [drift] + [ref[r] for r in ("fused", "unfused")]
+    if not all(np.isfinite(v) for rep in reports for k in ("z", "frames")
+               for v in rep[k].values()):
+        raise AssertionError(f"fused_drift {drift}")
+    for k in ("z", "frames"):
+        fused, unfused = (ref[r][k]["rel_mean"] for r in ("fused",
+                                                          "unfused"))
+        if drift[k]["rel_mean"] > DRIFT_BOUND_REL or \
+                fused > DRIFT_BOUND_RATIO * unfused:
+            raise AssertionError(f"fused_drift {k}: routes {drift[k]}, "
+                                 f"from fp32 fused {fused} unfused "
+                                 f"{unfused}")
+    torch.cuda.empty_cache()
+    ev = profile_unet.profile_unet(cfg, device, iters=3, height=h, width=w,
+                                   label="phase13")
+    ev["launches"] = _launched(total)
+    torch.cuda.empty_cache()
+    ab = clip_ab.clip_ab(cfg, device, steps_a=2, steps_b=4, height=h,
+                         width=w, label="phase13", skip_eval=True)
+    ab["launches"] = _launched(total)
+    log("tools", json.dumps({
+        "profile_unet_ms_per_cfg_eval": ev["ms_per_cfg_eval"],
+        "clip_ab_slope_ms_per_step": ab["slope_ms_per_step"],
+        "profile_unet": ev, "clip_ab": ab, "card": card_line()}))
+    if not (ev["finite"] and ab["finite"]):
+        raise AssertionError("profile_unet or clip_ab: non-finite output")
+    torch.cuda.empty_cache()
+
+
+def _encoder_calls(cfgs):
+    """(name, module builder, inputs builder) of each alternative encoder
+    at the widths of `cfgs` (t5, clip_text, clip_vision)."""
+    from open_pandora_tpu_torch.models import encoders_extra as ee
+
+    t5, ct, cv = cfgs
+
+    def ids(vocab, n, b=2, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        out = torch.randint(1, vocab - 1, (b, n), generator=g)
+        out[:, n // 2] = vocab - 1      # the eos: the largest id, once
+        return (out,)
+
+    def image(b=2):
+        g = torch.Generator().manual_seed(3)
+        return (torch.rand((b, 320, 512, 3), generator=g) * 2 - 1,)
+
+    return [
+        ("t5", lambda: ee.T5Encoder(t5), lambda: ids(t5.vocab_size, 77)),
+        ("clip_text_last", lambda: ee.HFCLIPTextEncoder(ct),
+         lambda: ids(ct.vocab_size, ct.context_length)),
+        ("clip_text_pooled", lambda: ee.HFCLIPTextEncoder(ct, "pooled"),
+         lambda: ids(ct.vocab_size, ct.context_length)),
+        ("clip_text_hidden", lambda: ee.HFCLIPTextEncoder(ct, "hidden", -2),
+         lambda: ids(ct.vocab_size, ct.context_length)),
+        ("pooled_clip_image", lambda: ee.PooledCLIPImageEncoder(cv),
+         image),
+        ("class_embedder", lambda: ee.ClassEmbedder(1024, ucg_rate=0.0),
+         lambda: (torch.arange(0, 1000, 125),)),
+    ]
+
+
+def _tools_encoders(device, seed: int, total: dict) -> None:
+    """(d) each alternative encoder at its full-size defaults in bf16 (ms by
+    CUDA events, peak), then at narrow widths in fp32, card against CPU
+    within BOUND_REL of the scale."""
+    from open_pandora_tpu_torch.core import config as c
+    from open_pandora_tpu_torch.core.init import init_random_
+
+    full = []
+    for name, build, inputs in _encoder_calls(
+            (c.T5Config(), c.CLIPTextConfig(), c.CLIPVisionConfig())):
+        with torch.device("meta"):
+            mod = build()
+        mod = mod.to(torch.bfloat16).to_empty(device=device).eval()
+        init_random_(mod, torch.Generator(device=device).manual_seed(seed))
+        x = [t.to(device) for t in inputs()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: mod(*x), warmup=1, iters=3)
+            y = mod(*x)
+        full.append({"encoder": name, "ms": ms, "shape": list(y.shape),
+                     "parameters": sum(p.numel() for p in mod.parameters()),
+                     "peak_bytes": torch.cuda.max_memory_allocated()})
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        del mod, y
+        torch.cuda.empty_cache()
+    narrow = []
+    for name, build, inputs in _encoder_calls((
+            c.T5Config(vocab_size=300, d_model=64, d_kv=16, d_ff=96,
+                       num_layers=2, num_heads=4),
+            c.CLIPTextConfig(vocab_size=300, width=64, layers=2, heads=2),
+            c.CLIPVisionConfig(width=64, layers=2, heads=2))):
+        cpu = build().eval()
+        init_random_(cpu, torch.Generator().manual_seed(seed))
+        card = copy.deepcopy(cpu).to(device)
+        x = inputs()
+        with torch.no_grad():
+            ref = cpu(*x)
+            got = card(*[t.to(device) for t in x]).cpu()
+        err = (got - ref).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
+        narrow.append({"encoder": name, "max_abs_err": err, "scale": scale,
+                       "ok": err <= BOUND_REL * scale})
+    launches = _launched(total)
+    log("tools", json.dumps({"encoders_full_bf16": full,
+                             "encoders_narrow_fp32_card_vs_cpu": narrow,
+                             "bound_rel": BOUND_REL, "launches": launches,
+                             "card": card_line()}))
+    if not all(r["ok"] for r in narrow):
+        raise AssertionError("an encoder's card and CPU outputs disagree")
+
+
+def _tools_hires(device, total: dict) -> None:
+    """(e) tools.hires_train_probe at 576x1024: precompute, then 2 latent
+    steps after a first one with adamw8bit (the probe's default), then
+    with adamw (phase 10's), to tell the optimizer's share."""
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.tools import hires_train_probe
+
+    cfg = PandoraConfig()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_latents_")
+    try:
+        t0 = time.perf_counter()
+        path = hires_train_probe.precompute(
+            cfg, device, height=HIRES_PROBE_HW[0], width=HIRES_PROBE_HW[1],
+            path=os.path.join(tmp, "latents.npz"))
+        pre_s = time.perf_counter() - t0
+        reps = []
+        # adamw8bit, the probe's default; then adamw, phase 10's optimizer
+        for opt in ("adamw8bit", "adamw"):
+            torch.cuda.empty_cache()
+            rep = hires_train_probe.train(cfg, device, latents=path,
+                                          steps=2, optimizer=opt)
+            rep.update(launches=_launched(total), card=card_line())
+            reps.append(rep)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("tools", json.dumps({"hires_train_probe": reps,
+                             "precompute_s": pre_s,
+                             "phase10_in_step": READINGS.get("train_hires"),
+                             "card": card_line()}))
+    if not all(np.isfinite([r["loss_first"], r["loss_last"]]).all()
+               for r in reps):
+        raise AssertionError(f"latent step losses {reps}")
+    torch.cuda.empty_cache()
+
+
+def _tools_activations(device, seed: int, total: dict) -> None:
+    """(f) activation_dump of one fp32 forward of phase 4's narrow UNet on
+    an 8x8 latent (the JAX tool's --tiny size; every module's output is
+    kept, compressed), card against CPU: diff_npz's rows; the output
+    within BOUND_REL."""
+    import contextlib
+    import io
+
+    from open_pandora_tpu_torch.tools import activation_dump
+
+    ucfg = narrow_config().unet
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_acts_")
+    try:
+        paths = {}
+        for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            acts = activation_dump.dump_unet(ucfg, dev, h=8, w=8,
+                                             seed=seed)
+            paths[name] = activation_dump.save_npz(
+                os.path.join(tmp, name + ".npz"), acts)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rows = activation_dump.diff_npz(paths["card"], paths["cpu"],
+                                            top=0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst = max(rows, key=lambda r: r[1])
+    out = dict((k, r) for k, r, _ in rows)["__output__"]
+    log("tools", json.dumps({"activation_dump": {
+        "modules": len(rows), "largest_rel_row": worst[:2],
+        "output_rel": out, "bound_rel": BOUND_REL,
+        "launches": _launched(total), "card": card_line()}}))
+    if not out <= BOUND_REL:
+        raise AssertionError(f"activation dump: output {out} from the CPU")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("chip_smoke")
     p.add_argument("--seed", type=int, default=0)
@@ -3538,6 +3869,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log("build", line.strip())
 
+    t_run = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     summary = check_kernels(device, gen)
     check_model(device, args.seed)
@@ -3567,6 +3899,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths["multi"] = run_multi(args.seed, prompts[-1])
     paths["decode"] = run_decode(device, args.seed, prompts[-1])
+    torch.cuda.empty_cache()
+    paths["tools"] = run_tools(device, args.seed)
+    log("run", f"wall {time.perf_counter() - t_run:.1f} s from phase 3 on "
+        f"(the build {t_run - t0:.1f} s before it)")
 
     # launches: the main paths' runs together, and each on its own
     kernels_line = {"kernels": [

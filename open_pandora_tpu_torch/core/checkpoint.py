@@ -1,12 +1,15 @@
-"""Training checkpoints and the run workspace.
+"""Checkpoint reading, training checkpoints and the run workspace.
 
-Counterpart of save_params / restore_params in
+Counterpart of load_torch_flat / save_params / restore_params in
 open_pandora_tpu/core/checkpoint.py and of init_workspace /
 find_latest_checkpoint in open_pandora_tpu/train/trainer.py:32-63. The
 trainable parameters are saved with torch.save into `step_<n>`
-directories (the JAX package uses Orbax; neither Orbax nor safetensors is
-on the card's machine). The workspace is {logdir}/{name}/{checkpoints,
-configs,loginfo} (reference utils_train.py:9-26).
+directories (the JAX package uses Orbax). Reference checkpoints are read
+by `load_torch_flat`: torch files and `.safetensors` files, one file or a
+directory of HF shards; the `.safetensors` reader is this module's own,
+since the card's machine has no safetensors package. The workspace is
+{logdir}/{name}/{checkpoints,configs,loginfo} (reference
+utils_train.py:9-26).
 """
 
 from __future__ import annotations
@@ -14,11 +17,110 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import pickle
+import struct
+import sys
 from typing import Dict, Optional
 
 import torch
 
 PARAMS_FILE = "params.pt"
+CKPT_SUFFIXES = (".bin", ".safetensors", ".pt", ".ckpt")
+
+# safetensors dtype names -> torch dtypes; any other name (the float8s,
+# complex) is refused
+SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "BOOL": torch.bool,
+    "I8": torch.int8, "U8": torch.uint8, "I16": torch.int16,
+    "U16": torch.uint16, "I32": torch.int32, "U32": torch.uint32,
+    "I64": torch.int64, "U64": torch.uint64,
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A `.safetensors` file -> {key: CPU tensor}: an 8-byte little-endian
+    header length, a JSON header of each tensor's dtype, shape and byte
+    offsets (from the end of the header; `__metadata__` skipped), then the
+    raw little-endian data. Each tensor is read into its own buffer."""
+    if sys.byteorder != "little":
+        raise RuntimeError("read_safetensors reads little-endian data on a "
+                           "little-endian host only")
+    out: Dict[str, torch.Tensor] = {}
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        base = 8 + n
+        for key, spec in header.items():
+            if key == "__metadata__":
+                continue
+            dtype = SAFETENSORS_DTYPES.get(spec["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: {key} has dtype {spec['dtype']}; "
+                                 f"read are {sorted(SAFETENSORS_DTYPES)}")
+            start, end = spec["data_offsets"]
+            shape = tuple(spec["shape"])
+            numel = 1
+            for d in shape:
+                numel *= d
+            if end - start != numel * dtype.itemsize:
+                raise ValueError(f"{path}: {key} holds {end - start} bytes "
+                                 f"for {shape} {spec['dtype']}")
+            buf = bytearray(end - start)
+            f.seek(base + start)
+            if f.readinto(buf) != len(buf):
+                raise ValueError(f"{path}: {key} runs past the file's end")
+            t = (torch.frombuffer(buf, dtype=dtype) if buf
+                 else torch.empty(0, dtype=dtype))
+            out[key] = t.reshape(shape)
+    return out
+
+
+def load_torch_flat(path: str) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint -> {key: tensor}: one file, or the sorted
+    `.bin` / `.pt` / `.ckpt` / `.safetensors` files of a directory (HF
+    shards). Torch files load with `weights_only=True`, unwrapped from a
+    `state_dict` or `module` dict (PL, DeepSpeed); keys keep their
+    prefixes (core.convert.normalize_state_dict strips them). A PL file
+    whose other entries (hyper-parameters) hold classes outside torch's
+    safe list is refused by that load: save its `state_dict` on its own.
+    In a directory, a torch file that is not a dict of weights (HF
+    Trainer's pickled `training_args.bin`) is skipped, as the JAX loader
+    skips a non-dict; it is named in the error only when the directory
+    holds no weights at all. The JAX package loads with
+    weights_only=False and returns NumPy."""
+    if os.path.isdir(path):
+        files = [os.path.join(path, f) for f in sorted(os.listdir(path))
+                 if f.endswith(CKPT_SUFFIXES)]
+    else:
+        files = [path]
+    flat: Dict[str, torch.Tensor] = {}
+    skipped = []
+    for f in files:
+        if f.endswith(".safetensors"):
+            flat.update(read_safetensors(f))
+            continue
+        try:
+            raw = torch.load(f, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError:
+            if f == path:
+                raise
+            skipped.append(f)
+            continue
+        if not isinstance(raw, dict):
+            skipped.append(f)
+            continue
+        for wrapper in ("state_dict", "module"):
+            if isinstance(raw.get(wrapper), dict):
+                raw = raw[wrapper]
+                break
+        flat.update({k: v if isinstance(v, torch.Tensor)
+                     else torch.as_tensor(v) for k, v in raw.items()
+                     if isinstance(v, (torch.Tensor, int, float))})
+    if skipped and not flat:
+        raise ValueError(f"{path}: no weights; these files hold no dict of "
+                         f"tensors: {skipped}")
+    return flat
 
 
 def init_workspace(logdir: str, name: str, cfg,
@@ -38,10 +140,12 @@ def init_workspace(logdir: str, name: str, cfg,
 
 
 def save_params(ckpt_dir: str, params: Dict[str, torch.Tensor],
-                step: int) -> str:
+                step: Optional[int] = None) -> str:
     """Write `params` (name -> tensor) to {ckpt_dir}/step_{step}/params.pt,
-    through a temporary file renamed into place."""
-    path = os.path.join(ckpt_dir, f"step_{step}")
+    or with no step to {ckpt_dir}/params.pt, through a temporary file
+    renamed into place; returns the directory."""
+    path = (os.path.join(ckpt_dir, f"step_{step}") if step is not None
+            else ckpt_dir)
     os.makedirs(path, exist_ok=True)
     out = os.path.join(path, PARAMS_FILE)
     torch.save({k: v.detach().cpu() for k, v in params.items()},

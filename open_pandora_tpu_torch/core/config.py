@@ -73,6 +73,23 @@ class CLIPTextConfig:
 
 
 @dataclass(frozen=True)
+class T5Config:
+    """T5 v1.1 encoder (reference condition.py:62-91 FrozenT5Embedder, an
+    alternative text conditioner no shipped config uses); the defaults are
+    google/t5-v1_1-large's encoder."""
+
+    vocab_size: int = 32128
+    d_model: int = 1024
+    d_kv: int = 64
+    d_ff: int = 2816
+    num_layers: int = 24
+    num_heads: int = 16
+    relative_buckets: int = 32
+    relative_max_distance: int = 128
+    layer_norm_eps: float = 1e-6
+
+
+@dataclass(frozen=True)
 class CLIPVisionConfig:
     """OpenCLIP ViT-H-14 visual tower returning all 257 tokens."""
 

@@ -21,6 +21,12 @@ Leaf transforms (each the inverse of the forward converter's):
   conv3d kernel DHWIO     -> weight OIDHW
   norm scale / bias       -> weight / bias   [RMSNorm: scale -> weight]
   embedding (vocab, dim)  -> weight, as it is
+
+`normalize_state_dict` undoes a read checkpoint's `_forward_module.`
+prefix and renamed keys, and the PL and DeepSpeed wrappers of a dict it
+is handed whole (JAX convert.py:483). core.checkpoint.load_torch_flat
+already unwraps each file it reads, as JAX checkpoint.py:29 does, since
+it merges shard files into one flat dict.
 """
 
 from __future__ import annotations
@@ -392,6 +398,76 @@ def connector(out: Flat, params: Mapping) -> None:
     linear(out, "diffusion_proj", p["proj"])
 
 
+# -- the alternative encoders (models/encoders_extra.py) ----------------------
+
+
+def t5_encoder_from_jax(params: Mapping, cfg) -> Flat:
+    """JAX T5Encoder params -> the transformers T5EncoderModel keys (the
+    inverse of JAX `convert_t5_encoder`); `encoder.embed_tokens` is tied
+    to `shared`, as in transformers."""
+    p = params["params"]
+    out: Flat = {"shared.weight": _a(p["shared_embedding"])}
+    out["encoder.embed_tokens.weight"] = out["shared.weight"]
+    out["encoder.block.0.layer.0.SelfAttention.relative_attention_bias"
+        ".weight"] = _a(p["relative_attention_bias"])
+    out["encoder.final_layer_norm.weight"] = _a(p["final_ln"])
+    for i in range(cfg.num_layers):
+        pre = f"encoder.block.{i}.layer"
+        out[f"{pre}.0.layer_norm.weight"] = _a(p[f"block_{i}_ln0"])
+        out[f"{pre}.1.layer_norm.weight"] = _a(p[f"block_{i}_ln1"])
+        for nm in ("q", "k", "v", "o"):
+            linear(out, f"{pre}.0.SelfAttention.{nm}",
+                   p[f"block_{i}_attn"][nm])
+        for jx, nm in (("wi0", "wi_0"), ("wi1", "wi_1"), ("wo", "wo")):
+            linear(out, f"{pre}.1.DenseReluDense.{nm}", p[f"block_{i}_{jx}"])
+    return out
+
+
+def hf_clip_text_from_jax(params: Mapping, cfg) -> Flat:
+    """JAX HFCLIPTextEncoder params -> the transformers CLIPTextModel keys
+    (the inverse of JAX `convert_hf_clip_text`)."""
+    p = params["params"]
+    base = "text_model."
+    out: Flat = {
+        base + "embeddings.token_embedding.weight": _a(p["token_embedding"]),
+        base + "embeddings.position_embedding.weight":
+            _a(p["position_embedding"]),
+    }
+    norm(out, base + "final_layer_norm", p["ln_final"])
+    for i in range(cfg.layers):
+        pre, b = f"{base}encoder.layers.{i}.", p[f"layers_{i}"]
+        norm(out, pre + "layer_norm1", b["ln_1"])
+        norm(out, pre + "layer_norm2", b["ln_2"])
+        linear(out, pre + "mlp.fc1", b["mlp_fc1"])
+        linear(out, pre + "mlp.fc2", b["mlp_fc2"])
+        for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(out, pre + f"self_attn.{nm}", b[nm])
+    return out
+
+
+def class_embedder_from_jax(params: Mapping) -> Flat:
+    return {"embedding.weight": _a(params["params"]["embedding"])}
+
+
+def pooled_clip_image_from_jax(params: Mapping) -> Flat:
+    """JAX PooledCLIPImageEncoder params -> `visual.*` (the open_clip
+    tower), `ln_post.*` and `proj`."""
+    p = params["params"]
+    out: Flat = {"proj": _a(p["proj"])}
+    openclip_visual(out, {"params": p["visual"]}, "visual")
+    norm(out, "ln_post", p["ln_post"])
+    return out
+
+
+def clip_t5_pair_from_jax(params: Mapping, clip_cfg, t5_cfg) -> Flat:
+    p = params["params"]
+    out = {f"clip.{k}": v for k, v in hf_clip_text_from_jax(
+        {"params": p["clip"]}, clip_cfg).items()}
+    out.update({f"t5.{k}": v for k, v in t5_encoder_from_jax(
+        {"params": p["t5"]}, t5_cfg).items()})
+    return out
+
+
 # -- composite ----------------------------------------------------------------
 
 _TOWER = "video_model.model.vision_tower.vision_tower.vision_model"
@@ -424,4 +500,25 @@ def state_dict_from_jax(params: Mapping, cfg) -> Flat:
         if "text_embedding_encoder" in params:
             text_embedding_encoder(out, params["text_embedding_encoder"],
                                    "diffusion_text_encoder")
+    return out
+
+
+# -- dialect normalization ----------------------------------------------------
+
+
+def normalize_state_dict(raw: Mapping) -> Dict:
+    """Strip PL / DeepSpeed wrappers and rename keys, as JAX
+    `normalize_state_dict` (reference utils_train.py:136-158): the
+    `state_dict`, then `module` level; the `_forward_module.` prefix;
+    `framestride_embed` -> `fps_embedding` (inference.py:39-44)."""
+    if isinstance(raw.get("state_dict"), dict):
+        raw = raw["state_dict"]
+    if isinstance(raw.get("module"), dict):
+        raw = raw["module"]
+    out = {}
+    for k, v in raw.items():
+        k = k.removeprefix("_forward_module.")
+        if "framestride_embed" in k:
+            k = k.replace("framestride_embed", "fps_embedding")
+        out[k] = v
     return out

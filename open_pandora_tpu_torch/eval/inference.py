@@ -33,6 +33,8 @@ from open_pandora_tpu_torch.core.config import (CLIPTextConfig,
                                                 PandoraConfig,
                                                 ResamplerConfig,
                                                 UNet3DConfig, VAEConfig)
+from open_pandora_tpu_torch.core.checkpoint import load_torch_flat
+from open_pandora_tpu_torch.core.convert import normalize_state_dict
 from open_pandora_tpu_torch.core.init import init_random_
 from open_pandora_tpu_torch.models.dynamicrafter import DynamiCrafter
 from open_pandora_tpu_torch.models.lora import add_lora_params, is_adapter
@@ -119,23 +121,23 @@ def synthesize(model: DynamiCrafter, image: np.ndarray, prompt: str, *,
     return video.float().cpu().numpy()
 
 
+def missing_keys(wanted, sd) -> list:
+    """The model's keys (`wanted`) a normalised checkpoint `sd` lacks, but
+    for LoRA adapters, which keep their fresh init."""
+    return [k for k in wanted if k not in sd and not is_adapter(k)]
+
+
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:
     """Load a reference DynamiCrafter checkpoint into a DynamiCrafter, or
     the released composite into a WorldModel (plain, PL or DeepSpeed state
     dict). Keys the model does not hold (schedule buffers, unused open_clip
     parameters) are skipped; a key the model holds but the file lacks is an
-    error, but for LoRA adapters, which keep their fresh init."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    for wrapper in ("state_dict", "module"):
-        if isinstance(raw.get(wrapper), dict):
-            raw = raw[wrapper]
-    sd = {}
-    for k, v in raw.items():
-        k = k.removeprefix("_forward_module.").replace("framestride_embed",
-                                                       "fps_embedding")
-        sd[k] = v
+    error, but for LoRA adapters, which keep their fresh init. `path` is
+    any file or HF shard directory core.checkpoint.load_torch_flat reads
+    (torch files, `.safetensors`)."""
+    sd = normalize_state_dict(load_torch_flat(path))
     wanted = model.state_dict()
-    missing = [k for k in wanted if k not in sd and not is_adapter(k)]
+    missing = missing_keys(wanted, sd)
     if missing:
         raise KeyError(f"{path}: {len(missing)} keys missing, e.g. "
                        f"{missing[:3]}")

@@ -10,9 +10,11 @@ gradio_app.py), with the same options and defaults, plus `--device`:
       [--height 320 --width 512] [--debug] [--device cuda]
 
 Without `--ckpt` the weights are random (seeded 0); with it, a reference
-torch checkpoint of the composite (PL or DeepSpeed wrappers and renamed
-keys normalised, then loaded strictly), or a `step_<n>` directory of the
-port's trainer, whose parameters are loaded over those random weights.
+checkpoint of the composite (a torch `.bin` / `.pt` / `.ckpt` or a
+`.safetensors` file, or a directory of HF shards of either; PL or
+DeepSpeed wrappers and renamed keys normalised, then loaded strictly), or
+a `step_<n>` directory of the port's trainer, whose parameters are loaded
+over those random weights (`load_weights`).
 `--debug` runs the tiny config (pipeline/chat_wm.debug_world_config, fp32,
 32x32 frames, at most 2 DDIM steps) on the same code path. Reading the
 image needs PIL and writing the mp4 OpenCV, each imported then: `run`,
@@ -41,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-round action text (repeat for multi-round)")
     p.add_argument("--out", default="output.mp4")
     p.add_argument("--ckpt", default=None,
-                   help="reference torch checkpoint, or a trainer step_<n> "
+                   help="reference checkpoint (torch or .safetensors file, "
+                        "HF shard directory), or a trainer step_<n> "
                         "directory")
     p.add_argument("--tokenizer", default=None)
     p.add_argument("--ddim-steps", type=int, default=50)
@@ -63,12 +66,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_weights(wm, path: str) -> None:
-    """A trainer `step_<n>` directory (its parameters over the model's
-    current ones) or a reference torch checkpoint of the composite."""
-    from open_pandora_tpu_torch.core.checkpoint import restore_params
+    """`--ckpt`, as JAX `load_params` picks the path: a trainer `step_<n>`
+    directory (its parameters over the model's current ones), else a
+    reference checkpoint of the composite through
+    core.checkpoint.load_torch_flat (a torch or `.safetensors` file, or a
+    directory of HF shards), normalised and loaded strictly. A `step_<n>`
+    directory is told from a shard directory by the `params.pt` the
+    trainer writes into it (core.checkpoint.PARAMS_FILE): a shard
+    directory holds no file of that name."""
+    from open_pandora_tpu_torch.core.checkpoint import (PARAMS_FILE,
+                                                        restore_params)
     from open_pandora_tpu_torch.eval.inference import load_checkpoint
 
-    if os.path.isdir(path):
+    if os.path.isfile(os.path.join(path, PARAMS_FILE)):
         restore_params(path, wm.state_dict(), strict=False)
     else:
         load_checkpoint(wm, path)

@@ -2,9 +2,10 @@
 stages, on one device or over a (data, model) mesh.
 
 Counterpart of `make_finetune_step`, `_finetune_loss`,
-`make_wm_finetune_step` and `make_alignment_step` in
-open_pandora_tpu/train/step.py (reference model.py:926-949 training_step,
-get_batch_input :828-884, alignment_forward :886-923): VAE-encoded video
+`make_wm_finetune_step`, `make_alignment_step` and
+`make_latent_finetune_step` in open_pandora_tpu/train/step.py (reference
+model.py:926-949 training_step, get_batch_input :828-884,
+alignment_forward :886-923): VAE-encoded video
 latents sampled from the posterior, text and image conditioning, CFG
 dropout of the text context to the empty prompt, the frame-stride
 condition from the batch, and the diffusion loss; or the alignment KL;
@@ -138,13 +139,28 @@ def _finetune_loss(model: DynamiCrafter, tcfg: TrainConfig,
         l_simple_weight=cfg.diffusion.l_simple_weight)
 
 
+def diffusion_draws(model: DynamiCrafter, z_shape,
+                    generator: torch.Generator) -> Dict:
+    """The diffusion loss's draws for latents of `z_shape` (b, T, hz, wz,
+    c): the timesteps, then the noise (fp32 under the dynamic rescale,
+    which promotes the latents)."""
+    dev = model.device
+    return {"t": torch.randint(0, model.schedule.num_timesteps,
+                               (z_shape[0],), generator=generator,
+                               device=dev),
+            "noise": torch.randn(
+                tuple(z_shape), generator=generator, device=dev,
+                dtype=torch.float32
+                if model.cfg.diffusion.use_dynamic_rescale
+                else model.dtype)}
+
+
 def finetune_draws(model: DynamiCrafter, tcfg: TrainConfig,
                    video_shape, generator: torch.Generator) -> Dict:
     """The draws `_finetune_loss` takes, made from `generator` for videos
     of `video_shape` (b, T, H, W, 3): the posterior noise, the CFG dropout
-    mask, the timesteps and the diffusion noise (fp32 under the dynamic
-    rescale, which promotes the latents). The one place the finetune loss's
-    randomness is drawn."""
+    mask, then diffusion_draws at the latents' shape. The one place the
+    finetune loss's randomness is drawn."""
     cfg, dev = model.cfg, model.device
     b, t, h, w = video_shape[:4]
     f = 2 ** (len(cfg.vae.channel_mult) - 1)
@@ -154,13 +170,47 @@ def finetune_draws(model: DynamiCrafter, tcfg: TrainConfig,
     if tcfg.uncond_prob > 0:
         out["uncond"] = torch.rand((b,), generator=generator,
                                    device=dev) < tcfg.uncond_prob
-    out["t"] = torch.randint(0, model.schedule.num_timesteps, (b,),
-                             generator=generator, device=dev)
-    out["noise"] = torch.randn(
-        shape, generator=generator, device=dev,
-        dtype=torch.float32 if cfg.diffusion.use_dynamic_rescale
-        else model.dtype)
+    out.update(diffusion_draws(model, shape, generator))
     return out
+
+
+def _latent_loss(model: DynamiCrafter, batch: Dict[str, torch.Tensor], *,
+                 draws: Dict[str, torch.Tensor]):
+    """The diffusion loss over precomputed latents and conditioning (JAX
+    `_latent_loss_fn`, train/step.py:218-241): batch = {z (b, T, hz, wz, 4),
+    ctx (b, L, ctx_dim), z_cond (b, T, hz, wz, 4), fps (b,)}; `draws` has
+    diffusion_draws' `t` and `noise`."""
+    if draws is None or not {"t", "noise"} <= draws.keys():
+        raise ValueError("_latent_loss: pass `t` and `noise` in draws "
+                         "(diffusion_draws)")
+    cfg, dev, dt = model.cfg, model.device, model.dtype
+    ctx = batch["ctx"].to(dev, dt)
+    z_cond = batch["z_cond"].to(dev, dt)
+    fs = batch["fps"].to(dev, torch.int64)
+
+    def apply(x_noisy, t):
+        return model.apply_model(x_noisy, t, ctx, z_cond, fs=fs)
+
+    return diffusion_loss(
+        apply, model.schedule, batch["z"].to(dev, dt), t=draws["t"],
+        noise=draws["noise"],
+        parameterization=cfg.diffusion.parameterization,
+        use_dynamic_rescale=cfg.diffusion.use_dynamic_rescale,
+        l_simple_weight=cfg.diffusion.l_simple_weight)
+
+
+def make_latent_finetune_step(model: DynamiCrafter, tcfg: TrainConfig,
+                              mesh_spec: Optional[MeshSpec] = None,
+                              fsdp: bool = False) -> Callable:
+    """The `dynamicrafter` step over precomputed latents and conditioning
+    (JAX train/step.py:244-257): batch = {z, ctx, z_cond, fps}. Only the
+    UNet trains (reference model.py:951-965), so the frozen VAE and CLIP
+    encoders run once outside the step (tools/hires_train_probe.py) and
+    stay out of its memory."""
+    return make_finetune_step(
+        model, tcfg, stage="dynamicrafter", mesh_spec=mesh_spec, fsdp=fsdp,
+        loss_fn=functools.partial(_latent_loss, model),
+        draw_fn=functools.partial(diffusion_draws, model), draw_key="z")
 
 
 def llm_prompt(wm: WorldModel, batch) -> MultimodalPrompt:
@@ -214,16 +264,18 @@ def make_finetune_step(model: nn.Module, tcfg: TrainConfig,
                        loss_fn: Optional[Callable] = None,
                        mesh_spec: Optional[MeshSpec] = None,
                        fsdp: bool = False,
-                       draw_fn: Optional[Callable] = None) -> Callable:
+                       draw_fn: Optional[Callable] = None,
+                       draw_key: str = "video") -> Callable:
     """step(state, batch, *, generator=None, draws=None) -> metrics
     (0-dim tensors on the model's device: the loss's, {loss, loss_simple}
     for the diffusion loss, and grad_norm, the norm before clipping; over
     a mesh, averaged over the data axis). Updates state in place.
     `loss_fn(batch, *, draws) -> (loss, metrics)` is the stage's loss; the
     default is the `dynamicrafter` stage's, on a DynamiCrafter.
-    `draw_fn(video_shape, generator)` makes the loss's draws for the global
-    batch (the default stage's: finetune_draws); a step with a draw_fn
-    takes the `generator` or the `draws`, one without takes neither.
+    `draw_fn(shape, generator)` makes the loss's draws for the global
+    batch, `shape` being that of its `batch[draw_key]` (the default
+    stage's: finetune_draws over `video`); a step with a draw_fn takes the
+    `generator` or the `draws`, one without takes neither.
 
     With a `mesh_spec`, `batch` is this data rank's slice of the global
     batch, and `step.shard_state(state)` must have prepared the state
@@ -266,7 +318,7 @@ def make_finetune_step(model: nn.Module, tcfg: TrainConfig,
             if draws is None:
                 if generator is None:
                     raise ValueError("pass a generator or the draws")
-                shape = batch["video"].shape
+                shape = batch[draw_key].shape
                 draws = draw_fn((n * shape[0], *shape[1:]), generator)
             if n > 1:
                 draws = {k: shard_rows(v, n, rank) for k, v in draws.items()}
