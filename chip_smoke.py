@@ -10,7 +10,9 @@ Phases, each printing its own lines and raising on failure:
   2. build    nvcc builds the kernel library from csrc/ (or loads it)
   3. kernels  each CUDA kernel against its plain PyTorch version at every
               shape of the slices' main paths (320x512 and 576x1024), plus
-              ragged cases (and fp32 ones for the kernels that take fp32);
+              ragged cases (and fp32 ones for the kernels that take fp32;
+              rows 1 and 9 at fp32 also within 8 max|ref32 - ref64| of the
+              float64 plain version, and at the full-width fp32 shapes);
               the packed kernel in its long-key regime and the dual
               cross-attention kernel under their own names; the backward
               kernels' dq, dk and dv each; the conv kernel as the direct
@@ -55,6 +57,10 @@ Phases, each printing its own lines and raising on failure:
               3 steps at 320x512x16f); seconds per step, peak memory,
               losses, gradients at a spatial and a temporal attention
               projection, launch counts against the routing
+  6b. train_fp32 the same under dtype_policy=fp32 (the JAX trainer's
+              precision: rows 1 and 9 on their fp32 kernels, 37 flash and
+              10 flash backward launches a step); seconds per step, peak
+              memory, losses, gradients, launches against the routing
   7. world    the full-width PandoraConfig() WorldModel in bf16 (32-layer
               LLaMA, 24-layer CLIP tower, 12-layer Q-Former, the diffusion
               stack) through pipeline.chat_wm.ChatWM at 576x1024, two
@@ -197,6 +203,7 @@ KERNEL_KEYS = tuple(key for key, _, _ in KERNELS.values())
 # the kernels each main path runs
 EVAL_KEYS = ("flash", "small", "packed", "fused_temporal", "group_norm")
 TRAIN_KEYS = ("flash", "flash_bwd", "small", "small_bwd", "group_norm")
+TRAIN_FP32_KEYS = ("flash", "flash_bwd", "small", "small_bwd")  # phase 6b
 WORLD_KEYS = EVAL_KEYS + ("packed_multi",)      # a ChatWM round at 576x1024
 WIDE_HEAD_KEYS = ("flash", "small", "dual_cross", "group_norm")
 
@@ -266,10 +273,24 @@ def cuda_ms(fn, *, warmup: int = 2, iters: int = 5) -> float:
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-# peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet; dense,
-# bf16 on the tensor cores, fp32 on the CUDA cores) and its memory rate
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet; dense)
+# and its memory rate: bf16 on the tensor cores; fp32 as split TF32, three
+# TF32 products for each fp32 one (495 TFLOP/s / 3), since a kernel
+# accurate to fp32 can run there and so pass the CUDA cores' 67 TFLOP/s
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+# the fp32 cases of rows 1 and 9, beside the rule of _kernel_bound:
+# max|kernel - ref64| within REF64_FACTOR max|ref32 - ref64| (ref64: the
+# plain version in float64 on the same inputs). One TF32 pass meets the
+# 1%-of-the-mean rule; it misses this one by orders of magnitude
+# (tests/test_torch_train_ops.py holds both to it on the CPU).
+REF64_FACTOR = 8
+
+
+def _ref64_chunk(h: int, n: int, m: int) -> int:
+    """Batch slices of the float64 plain versions: at most about 2.5e8
+    float64 scores (2 GB) at once."""
+    return max(1, int(2.5e8 // (h * n * m)))
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -296,6 +317,13 @@ def _kernel_bound(out, plain, ref32) -> tuple:
     err = (out.float() - ref32).abs().max().item()
     plain_err = (plain.float() - ref32).abs().max().item()
     bound = 2 * plain_err + 1e-2 * ref32.abs().mean().item()
+    return err, bound
+
+
+def _ref64_bound(out, ref32, ref64) -> tuple:
+    """max|out - ref64| and its bound, REF64_FACTOR max|ref32 - ref64|."""
+    err = (out.double() - ref64).abs().max().item()
+    bound = REF64_FACTOR * (ref32.double() - ref64).abs().max().item()
     return err, bound
 
 
@@ -362,12 +390,27 @@ def _attention_qkv(rnd, B, N, M, H, D, layout=None):
     """q (B, N, H, D), k and v (B, M, H, D) from rnd(*shape): contiguous;
     "packed": head-dim-contiguous views of one (B, N, 3, H, D) projection;
     "offset": q a view 4 elements into rows of D + 8, so that its base is
-    8 bytes off 16-byte alignment (bf16 then takes the scalar kernel)."""
+    8 bytes off 16-byte alignment (bf16 then takes the scalar kernel);
+    "offset1": q a view 1 element into rows of D + 4, 4 bytes off (fp32
+    then takes 4-byte copies)."""
     if layout == "packed":
         return rnd(B, N, 3, H, D).unbind(2)
-    q = (rnd(B, N, H, D + 8)[..., 4:4 + D] if layout == "offset"
-         else rnd(B, N, H, D))
+    if layout == "offset":
+        q = rnd(B, N, H, D + 8)[..., 4:4 + D]
+    elif layout == "offset1":
+        q = rnd(B, N, H, D + 4)[..., 1:1 + D]
+    else:
+        q = rnd(B, N, H, D)
     return q, rnd(B, M, H, D), rnd(B, M, H, D)
+
+
+def _sdpa_views(*ts):
+    """(B, H, N, D) views for SDPA, of contiguous copies where an fp32 row
+    is off 16-byte alignment: PyTorch's fp32 SDPA kernel faulted on such a
+    view (misaligned address) on the card."""
+    return _heads_first(*[
+        t.contiguous() if t.dtype == torch.float32 and t.data_ptr() % 16
+        else t for t in ts])
 
 
 def _check_attention(summary: dict, name: str, kern, plain, cases,
@@ -378,7 +421,7 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
     for case in cases:
         B, N, M, H, D, dt = case[:6]
         causal = case[6] if flash else False
-        layout = case[6] if not flash and len(case) > 6 else None
+        layout = case[6 + flash] if len(case) > 6 + flash else None
         kw = {"causal": causal} if flash else {}
         q, k, v = _attention_qkv(
             lambda *s: torch.randn(*s, generator=gen, device=device).to(dt),
@@ -395,10 +438,17 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
         if flash:  # (o, lse); the LSE is fp32 on both sides
             (out, lse), (ref32, lse32), ref_dt = out, ref32, ref_dt[0]
             extra["lse_max_abs_err"] = (lse - lse32).abs().max().item()
+            if dt == torch.float32:
+                ref64 = _by_batch(functools.partial(plain, **kw),
+                                  _ref64_chunk(H, N, M))(
+                    q.double(), k.double(), v.double())[0]
+                (extra["ref64_max_abs_err"],
+                 extra["ref64_bound"]) = _ref64_bound(out, ref32, ref64)
+                del ref64
         err, bound = _kernel_bound(out, ref_dt, ref32)
         del ref32, ref_dt
         mask = _sdpa_mask(N, M, causal, device)
-        qs, ks, vs = _heads_first(q, k, v)
+        qs, ks, vs = _sdpa_views(q, k, v)
         times = {
             "ms": cuda_ms(lambda: kern(q, k, v, **kw)),
             "plain_ms": cuda_ms(lambda: plain_b(q, k, v)),
@@ -407,7 +457,9 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
         # LSE: fp32 statistics of the same fp32 scores, summation order
         # only; 1e-3 is 1e-4 of its magnitude (about log M + max score)
         ok = bool(np.isfinite(err) and err <= bound
-                  and extra.get("lse_max_abs_err", 0.0) <= 1e-3)
+                  and extra.get("lse_max_abs_err", 0.0) <= 1e-3
+                  and extra.get("ref64_max_abs_err", 0.0)
+                  <= extra.get("ref64_bound", 0.0))
         pairs = attention_pairs(N, M, causal)
         nbytes = (2 * B * N + 2 * B * M) * H * D * q.element_size() \
             + flash * B * H * N * 4
@@ -420,7 +472,8 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
         del q, k, v, out
 
 
-def check_flash(summary: dict, device, gen) -> None:
+def check_flash(summary: dict, device, gen, dtypes=None) -> None:
+    """Row 1 at every case, or only at those whose dtype is in `dtypes`."""
     from open_pandora_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain)
 
@@ -447,6 +500,21 @@ def check_flash(summary: dict, device, gen) -> None:
         (2, 1000, 1000, 4, 72, bf16, False),    # D % 16 == 8: the k16 tail
         (2, 1100, 1000, 4, 128, bf16, True),    # causal, N > M: rows with
         (2, 1100, 1000, 4, 128, f32, True),     # no allowed key
+        # fp32 at full width: attn1 and the VAE encode of a training step
+        # under dtype_policy=fp32 (phase 6b), attn1 of an fp32 clip and
+        # the VAE decode chunk (phase 13's fp32 witness; above)
+        (16, 2560, 2560, 5, 64, f32, False),
+        (16, 640, 640, 10, 64, f32, False),
+        (1, 2560, 2560, 1, 512, f32, False),
+        (32, 2560, 2560, 5, 64, f32, False),
+        (32, 640, 640, 10, 64, f32, False),
+        # the fp32 tiles' edges: a head of 320 (the wide tile below its
+        # 512), ragged and causal; q 4 bytes off 16-byte alignment (4-byte
+        # copies) at both tiles
+        (2, 700, 300, 3, 320, f32, False),
+        (2, 1100, 1000, 2, 320, f32, True),
+        (2, 700, 300, 3, 64, f32, False, "offset1"),
+        (2, 700, 300, 1, 512, f32, False, "offset1"),
         (1, 384, 384, 32, 128, bf16, True),     # LLaMA's causal prefill
         (1, 512, 512, 32, 128, bf16, True),     # phase 12's decode prefill
         (1, 520, 520, 32, 128, bf16, True),     # and its re-prefill check
@@ -456,6 +524,7 @@ def check_flash(summary: dict, device, gen) -> None:
         (16, 2304, 2304, 10, 64, bf16, False),
         (16, 576, 576, 20, 64, bf16, False),
     ]
+    cases = [c for c in cases if dtypes is None or c[5] in dtypes]
     _check_attention(summary, "flash_fwd",
                      functools.partial(flash_attention, return_lse=True),
                      flash_attention_plain, cases, True, device, gen)
@@ -500,11 +569,13 @@ def check_small(summary: dict, device, gen) -> None:
                      small_attention_plain, cases, False, device, gen)
 
 
-def check_attention_bwd(summary: dict, device, gen) -> None:
+def check_attention_bwd(summary: dict, device, gen, dtypes=None) -> None:
     """The flash and small-attention backward kernels against their plain
     versions on the same q, k, v, do (and the forward's o and LSE): dq, dk
-    and dv each held to the bound rule. The library yardstick is SDPA's
-    forward and backward together (one autograd call)."""
+    and dv each held to the bound rule (the fp32 flash cases to the ref64
+    rule too). The library yardstick is SDPA's forward and backward
+    together (one autograd call). Every case, or those whose dtype is in
+    `dtypes`."""
     from open_pandora_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_plain)
@@ -515,7 +586,7 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
     # (B, N, M, H, D, dtype, causal): the training step's attn1 sites at
     # batch 1 (b*t = 16 frames), attn1 of a 576x1024 training step at
     # levels 0-2, a causal N < M with a ragged M, the narrow model's sites
-    # in fp32
+    # in fp32, the training step's attn1 sites in fp32 (phase 6b)
     flash_cases = [
         (16, 2560, 2560, 5, 64, bf16, False),
         (16, 640, 640, 10, 64, bf16, False),
@@ -526,6 +597,10 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
         (2, 1000, 1100, 4, 128, f32, True),
         (16, 2560, 2560, 2, 32, f32, False),
         (16, 640, 640, 4, 32, f32, False),
+        (16, 2560, 2560, 5, 64, f32, False),
+        (16, 640, 640, 10, 64, f32, False),
+        (2, 1100, 1000, 2, 72, f32, True),      # D % 64 != 0, N > M
+        (2, 700, 300, 3, 64, f32, False, "offset1"),
     ]
     # the temporal sites at batch 1 (b*h*w positions, t = 16): 40x64,
     # 20x32, 10x16, 5x8 and init_attn; at 576x1024, 72x128, 36x64 and
@@ -550,21 +625,31 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
         (2560, 16, 16, 2, 32, f32),
         (2560, 16, 16, 8, 32, f32),
     ]
+    if dtypes is not None:
+        flash_cases = [c for c in flash_cases if c[5] in dtypes]
+        small_cases = [c for c in small_cases if c[5] in dtypes]
 
     def rnd(*shape, dt):
         return torch.randn(*shape, generator=gen, device=device).to(dt)
 
-    def hold(name, case, kern, plain, ref32_fn, library, work):
+    def hold(name, case, kern, plain, ref32_fn, library, work,
+             ref64_fn=None):
         outs = kern()
         torch.cuda.synchronize()
         ref32, plain_out = ref32_fn(), plain()
+        ref64 = ref64_fn() if ref64_fn else (None,) * 3
         errs, ok = {}, True
-        for part, out, p, r in zip(("dq", "dk", "dv"), outs, plain_out,
-                                   ref32):
+        for part, out, p, r, r64 in zip(("dq", "dk", "dv"), outs, plain_out,
+                                        ref32, ref64):
             err, bound = _kernel_bound(out, p, r)
             errs[part] = {"max_abs_err": err, "bound": bound}
             ok = ok and bool(np.isfinite(err) and err <= bound)
-        del outs, ref32, plain_out
+            if r64 is not None:
+                err64, bound64 = _ref64_bound(out, r, r64)
+                errs[part].update(ref64_max_abs_err=err64,
+                                  ref64_bound=bound64)
+                ok = ok and err64 <= bound64
+        del outs, ref32, plain_out, ref64
         times = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
                  "library_ms": cuda_ms(library)}
         _record(summary, name, {**case, **errs}, max(
@@ -573,13 +658,14 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
     def sdpa_fwd_bwd(q, k, v, do, mask):
         def call():
             qs, ks, vs = (t.detach().requires_grad_()
-                          for t in _heads_first(q, k, v))
+                          for t in _sdpa_views(q, k, v))
             out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
             torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2))
         return call
 
-    for B, N, M, H, D, dt, causal in flash_cases:
-        q, k, v = (rnd(B, n, H, D, dt=dt) for n in (N, M, M))
+    for B, N, M, H, D, dt, causal, *layout in flash_cases:
+        q, k, v = _attention_qkv(lambda *s: rnd(*s, dt=dt), B, N, M, H, D,
+                                 layout[0] if layout else None)
         do = rnd(B, N, H, D, dt=dt)
         # the plain versions by batch slices of at most about 4 GB of fp32
         # scores: (16, 9216, 9216, 5 heads) is 27 GB in one piece
@@ -592,7 +678,7 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
         nbytes = (4 * B * N + 4 * B * M) * H * D * q.element_size() \
             + B * H * N * 4
         mask = _sdpa_mask(N, M, causal, device)
-        qs, ks, vs = _heads_first(q, k, v)
+        qs, ks, vs = _sdpa_views(q, k, v)
         # SDPA's forward alone, so that the backward's own gap reads as
         # library_ms - sdpa_fwd_ms
         sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -600,12 +686,15 @@ def check_attention_bwd(summary: dict, device, gen) -> None:
         hold("flash_bwd",
              {"shape": [B, N, H, D], "M": M,
               "dtype": str(dt).replace("torch.", ""), "causal": causal,
+              **({"layout": layout[0]} if layout else {}),
               "sdpa_fwd_ms": sdpa_fwd},
              lambda: flash_attention_bwd(*args, causal=causal),
              lambda: _by_batch(bwd, chunk)(*args),
              lambda: _by_batch(bwd, chunk)(*[t.float() for t in args]),
              sdpa_fwd_bwd(q, k, v, do, mask),
-             (nbytes, 10 * B * H * pairs * D, dt))
+             (nbytes, 10 * B * H * pairs * D, dt),
+             (lambda: _by_batch(bwd, _ref64_chunk(H, N, M))(
+                 *[t.double() for t in args])) if dt == f32 else None)
         del q, k, v, do, o, lse, args, qs, ks, vs
 
     for B, N, M, H, D, dt, *layout in small_cases:
@@ -1950,14 +2039,18 @@ def run_conv_route(device, seed: int, model) -> dict:
 TRAIN_STEPS = 3
 
 
-def run_train(device, seed: int) -> dict:
+def run_train(device, seed: int, fp32: bool = False) -> dict:
     """The port's trainer on the full-width PandoraConfig() in bf16
     (stage dynamicrafter, synthetic data, batch 1 at 320x512x16f), a few
-    steps into a temporary logdir removed afterwards."""
+    steps into a temporary logdir removed afterwards; with `fp32` (phase
+    6b) under dtype_policy=fp32, the JAX trainer's precision, where rows 1
+    and 9 run their fp32 kernels."""
     from open_pandora_tpu_torch.core.config import PandoraConfig
     from open_pandora_tpu_torch.train import trainer
 
     cfg = PandoraConfig()
+    name = "phase6b" if fp32 else "phase6"
+    policy = ["--set", "dtype_policy=fp32"] if fp32 else []
     logdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -1965,14 +2058,15 @@ def run_train(device, seed: int) -> dict:
         t0 = time.perf_counter()
         state = trainer.run([
             "--synthetic-data", "--max-steps", str(TRAIN_STEPS),
-            "--logdir", logdir, "--name", "phase6", "--device", "cuda",
+            "--logdir", logdir, "--name", name, "--device", "cuda",
             "--set", "train.stage=dynamicrafter",
-            "--set", "train.log_every=1", "--set", f"train.seed={seed}"])
+            "--set", "train.log_every=1", "--set", f"train.seed={seed}",
+            *policy])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
-        with open(os.path.join(logdir, "phase6", "loginfo",
+        with open(os.path.join(logdir, name, "loginfo",
                                "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
     finally:
@@ -1991,9 +2085,10 @@ def run_train(device, seed: int) -> dict:
     want = predicted_train_launches(cfg, cfg.train.height, cfg.train.width,
                                     batch=1,
                                     frames=cfg.train.video_length + 1,
-                                    bf16=True)
+                                    bf16=not fp32)
     report = {
-        "config": "PandoraConfig() bf16", "steps": TRAIN_STEPS,
+        "config": f"PandoraConfig() {'fp32' if fp32 else 'bf16'}",
+        "steps": TRAIN_STEPS,
         "trainable_parameters": n_params, "wall_s": wall,
         "sec_per_step": [r["sec_per_step"] for r in recs],
         "loss": [r["loss"] for r in recs],
@@ -2001,7 +2096,7 @@ def run_train(device, seed: int) -> dict:
         "grad_norm": [r["grad_norm"] for r in recs],
         "attention_grad_norms": grad_norms, "max_memory_allocated": peak,
         "launches": launches, "predicted_per_step": want}
-    log("train", json.dumps(report))
+    log("train_fp32" if fp32 else "train", json.dumps(report))
     finite = all(np.isfinite(r[k]) for r in recs
                  for k in ("loss", "loss_simple", "grad_norm"))
     if len(recs) != TRAIN_STEPS or not finite:
@@ -2012,14 +2107,16 @@ def run_train(device, seed: int) -> dict:
     # per step, PandoraConfig() at 320x512: 10 flash attn1 sites and 34
     # temporal sites, forward twice (checkpoint recompute) and backward
     # once; 17 VAE encodes (16 frames and the conditioning frame), each
-    # with one flash and 22 GroupNorm launches
+    # with one flash and, in bf16, 22 GroupNorm launches (fp32 takes the
+    # unfused GroupNorm)
     if (want["flash_bwd"], want["small_bwd"], want["small"], want["flash"],
-            want["group_norm"]) != (10, 34, 68, 37, 374):
+            want["group_norm"]) != (10, 34, 68, 37, 0 if fp32 else 374):
         raise AssertionError(f"the routing predicts {want}")
     if launches != {k: TRAIN_STEPS * want[k] for k in KERNEL_KEYS}:
         raise AssertionError(f"launches {launches} != {TRAIN_STEPS} x "
                              f"{want}")
-    if min(launches[k] for k in TRAIN_KEYS) <= 0:
+    keys = TRAIN_FP32_KEYS if fp32 else TRAIN_KEYS
+    if min(launches[k] for k in keys) <= 0:
         raise AssertionError("a kernel of the path never launched")
     return launches
 
@@ -3840,6 +3937,11 @@ def main(argv=None) -> int:
     # phase 11's own process: the JSON report's path and phase 7's prompt
     p.add_argument("--multi-worker", nargs=2, metavar=("OUT", "PROMPT"),
                    help=argparse.SUPPRESS)
+    p.add_argument("--fp32-only", action="store_true",
+                   help="phases 1-2, phase 3's fp32 attention cases and "
+                   "phase 6b, then stop without a result line (from a tree "
+                   "whose csrc/ is another commit's, this times that "
+                   "commit's kernels by this script's cases and rules)")
     args = p.parse_args(argv)
     if args.multi_worker:
         return multi_worker(*args.multi_worker, args.seed)
@@ -3871,6 +3973,13 @@ def main(argv=None) -> int:
 
     t_run = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    if args.fp32_only:
+        summary = {}
+        check_flash(summary, device, gen, dtypes=(torch.float32,))
+        check_attention_bwd(summary, device, gen, dtypes=(torch.float32,))
+        run_train(device, args.seed, fp32=True)
+        log("run", f"wall {time.perf_counter() - t_run:.1f} s (fp32 only)")
+        return 0
     summary = check_kernels(device, gen)
     check_model(device, args.seed)
     check_model_bf16(device, args.seed)
@@ -3886,6 +3995,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths["wide_heads"] = run_wide_heads(device, args.seed)
     paths["train"] = run_train(device, args.seed)
+    torch.cuda.empty_cache()
+    paths["train_fp32"] = run_train(device, args.seed, fp32=True)
+    torch.cuda.empty_cache()
     prompts = []
     paths["world"] = run_world(device, args.seed, prompts)
     torch.cuda.empty_cache()

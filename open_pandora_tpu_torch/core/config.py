@@ -295,6 +295,8 @@ class PandoraConfig:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
+    # global switches
+    do_alignment: bool = False   # alignment stage: no diffusion model built
     dtype_policy: str = "bf16"   # "bf16" | "fp32" (golden parity mode)
 
 

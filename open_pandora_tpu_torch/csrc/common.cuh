@@ -1,11 +1,12 @@
 // Shared helpers for the kernels: element conversion for the two supported
 // element types (fp32 and bf16), warp reductions, the online-softmax
-// attention tiles (`attn_stream` on the CUDA cores for fp32 flash; the
-// tensor-core `WgTile` for every bf16 launch of the flash and packed
-// attention kernels, whose softmax and gated two-stream sum the dual
-// cross-attention kernel shares), and the cp.async, ldmatrix, mma.sync and
-// wgmma wrappers of the tensor-core kernels; the warp-owned tiles of the
-// small-attention kernels; mbarrier and TMA helpers.
+// attention tiles (the tensor-core `WgTile` for every bf16 launch of the
+// flash and packed attention kernels, whose softmax and gated two-stream
+// sum the dual cross-attention kernel shares; `tc_softmax` also runs the
+// fp32 flash tiles), the cp.async, ldmatrix, mma.sync and wgmma wrappers of
+// the tensor-core kernels, and the split-TF32 fragments of the fp32 flash
+// kernels; the warp-owned tiles of the small-attention kernels; mbarrier
+// and TMA helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,224 +61,11 @@ struct Elem<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// -- online-softmax attention tiles on the CUDA cores (fp32 flash_fwd.cu) -
-//
-// A block of kAttnThreads threads owns kAttnBQ query rows of one (b, h) and
-// walks the key axis in tiles of BK rows. Shared memory holds the q tile
-// (kAttnBQ x ld), one k and one v tile (BK x ld each, ld = D + 2 elements),
-// the fp32 scores (kAttnBQ x (BK + 1)) and the per-row running max, sum and
-// rescale factor. Thread (ty, tx) of the 16 x 16 grid keeps output rows
-// ty + 16 i (i < 4) and column pairs 2 (tx + 16 j) in registers.
-
-constexpr int kAttnBQ = 64;        // query rows per block
-constexpr int kAttnThreads = 256;  // 16 x 16 thread grid
-
-// Copy `rows` rows of D elements into shared memory (row pitch `ld`
-// elements) in 32-bit words; rows at or beyond `valid` are zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          long long row_stride, int valid,
-                                          int rows, int D) {
-  constexpr int kPerWord = 4 / sizeof(T);
-  const int words = D / kPerWord;
-  for (int idx = threadIdx.x; idx < rows * words; idx += kAttnThreads) {
-    const int r = idx / words;
-    const int w = idx - r * words;
-    uint32_t val = 0u;
-    if (r < valid)
-      val = reinterpret_cast<const uint32_t*>(src + r * row_stride)[w];
-    reinterpret_cast<uint32_t*>(dst + r * ld)[w] = val;
-  }
-}
-
-// Bytes of dynamic shared memory the tiles take.
-template <typename T, int BK>
-constexpr size_t attn_smem_bytes(int D) {
-  return static_cast<size_t>(kAttnBQ + 2 * BK) * (D + 2) * sizeof(T) +
-         static_cast<size_t>(kAttnBQ) * (BK + 1) * sizeof(float) +
-         3 * kAttnBQ * sizeof(float);
-}
-
-template <typename T>
-struct AttnSmem {
-  T* q;       // (kAttnBQ, ld)
-  T* k;       // (BK, ld)
-  T* v;       // (BK, ld)
-  float* s;   // (kAttnBQ, BK + 1) scores, then probabilities
-  float* m;   // running max per row
-  float* l;   // running sum per row
-  float* a;   // rescale factor of the last tile per row
-  int ld;
-
-  template <int BK>
-  __device__ static AttnSmem carve(unsigned char* smem, int D) {
-    AttnSmem t;
-    t.ld = D + 2;  // padded by one 32-bit word: conflict-free column reads
-    t.q = reinterpret_cast<T*>(smem);
-    t.k = t.q + kAttnBQ * t.ld;
-    t.v = t.k + BK * t.ld;
-    t.s = reinterpret_cast<float*>(t.v + BK * t.ld);
-    t.m = t.s + kAttnBQ * (BK + 1);
-    t.l = t.m + kAttnBQ;
-    t.a = t.l + kAttnBQ;
-    return t;
-  }
-};
-
-// One key/value stream: acc = sum over key tiles of p v with an online
-// softmax against the q tile already in sm.q. k and v point at key row 0 of
-// this (b, h); rows are `ksn` / `vsn` elements apart. On return acc holds
-// the unnormalised output and sm.l / sm.m the row sums and maxima (fp32).
-// p is rounded to the element type for the product with v, as the TPU
-// kernels do (p.astype(v.dtype)). Masking: keys at or past M weigh exactly
-// 0; with `causal`, key col > row + q_offset scores kMaskValue.
-template <typename T, int DMAX, int BK>
-__device__ __forceinline__ void attn_stream(
-    const AttnSmem<T>& sm, float (&acc)[4][DMAX / 32][2], const T* k,
-    long long ksn, const T* v, long long vsn, int M, int D, int q0,
-    int kv_end, float scale, int causal, int q_offset) {
-  constexpr int ldS = BK + 1;
-  constexpr int kSC = BK / 16;      // score columns per thread
-  constexpr int kNJ = DMAX / 32;    // output column pairs per thread
-  constexpr int kRowsPerWarp = kAttnBQ / (kAttnThreads / 32);
-  constexpr int kLaneCols = (BK + 31) / 32;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int ld = sm.ld;
-
-  __syncthreads();  // earlier readers of sm.m / sm.l are done
-  if (tid < kAttnBQ) {
-    sm.m[tid] = -INFINITY;
-    sm.l[tid] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j][0] = acc[i][j][1] = 0.f;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    const int kvalid = min(BK, M - k0);
-    __syncthreads();
-    load_rows(sm.k, ld, k + k0 * ksn, ksn, kvalid, BK, D);
-    load_rows(sm.v, ld, v + k0 * vsn, vsn, kvalid, BK, D);
-    __syncthreads();
-
-    // scores: thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
-    float s[4][kSC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kSC; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; d += 2) {
-      float2 qv[4], kv[kSC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = Elem<T>::load2(sm.q + (ty + 16 * i) * ld + d);
-#pragma unroll
-      for (int j = 0; j < kSC; ++j)
-        kv[j] = Elem<T>::load2(sm.k + (tx + 16 * j) * ld + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kSC; ++j)
-          s[i][j] = fmaf(qv[i].y, kv[j].y, fmaf(qv[i].x, kv[j].x, s[i][j]));
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kSC; ++j)
-        sm.s[(ty + 16 * i) * ldS + tx + 16 * j] = s[i][j] * scale;
-    __syncthreads();
-
-    // online softmax, one warp per row
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const int row = q0 + r;
-      float vals[kLaneCols];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < kLaneCols; ++t) {
-        const int c = lane + 32 * t;
-        const int col = k0 + c;
-        float x = -INFINITY;  // beyond the key edge: weight exactly 0
-        if (c < BK && col < M) {
-          x = sm.s[r * ldS + c];
-          if (causal && col > row + q_offset) x = kMaskValue;
-        }
-        vals[t] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      const float m_old = sm.m[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: column k0 is valid
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < kLaneCols; ++t) {
-        const int c = lane + 32 * t;
-        if (c < BK) {
-          const float p = expf(vals[t] - m_new);
-          sum += p;
-          // the product with v uses p in the element type; the row sum
-          // stays fp32
-          sm.s[r * ldS + c] = Elem<T>::round(p);
-        }
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sm.a[r] = alpha;
-        sm.l[r] = alpha * sm.l[r] + sum;
-        sm.m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = alpha * acc + p v
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) alpha[i] = sm.a[ty + 16 * i];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        acc[i][j][0] *= alpha[i];
-        acc[i][j][1] *= alpha[i];
-      }
-    for (int c = 0; c < kvalid; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sm.s[(ty + 16 * i) * ldS + c];
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int col = 2 * (tx + 16 * j);
-        if (col < D) {
-          const float2 vv = Elem<T>::load2(sm.v + c * ld + col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][j][0] = fmaf(p[i], vv.x, acc[i][j][0]);
-            acc[i][j][1] = fmaf(p[i], vv.y, acc[i][j][1]);
-          }
-        }
-      }
-    }
-  }
 }
 
 // -- tensor-core helpers (the attention tiles below, fused_temporal_attn.cu,
@@ -935,6 +723,271 @@ __device__ __forceinline__ void tc_softmax(float (&s)[NT][4],
   }
 }
 
+// -- split-TF32 tiles of the fp32 flash kernels (flash_fwd.cu, flash_bwd.cu)
+//
+// An fp32 product runs on the tensor cores as three TF32 products
+// (CUTLASS's 3xTF32): each operand x = hi + lo with hi = x rounded to TF32
+// (10 mantissa bits, to nearest, ties away from zero: cvt.rna's rounding)
+// and lo = x - hi rounded the same way; a b accumulates in fp32 as lo_a hi_b
+// + hi_a lo_b + hi_a hi_b, and lo_a lo_b (about 2^-22 of a b) is dropped.
+// hi is rounded explicitly: the tensor core would truncate the low 13 bits
+// itself, and lo would then not be x - hi. Tiles stay fp32 in shared memory
+// (rows of ld = DMAX + 4 floats: every fragment load below is bank-conflict
+// free) and are split in registers as fragments are loaded.
+//
+// Fragments of mma.sync m16n8k8 (g = lane / 4, t = lane % 4): A = {A[g][t],
+// A[g+8][t], A[g][t+4], A[g+8][t+4]}, B = {B[t][g], B[t+4][g]}, the
+// accumulator as mma_bf16's (rows g, g + 8; columns 2t, 2t + 1). A product
+// whose A is an accumulator (p v, p^T do, ds k, ...) reads the k slots in
+// another order: slot t is column 2t and slot t + 4 column 2t + 1, so A
+// comes from the accumulator without shuffles (`acc_a`) and B's rows are
+// taken in the same order (`ldb_kmajor`).
+
+// x = hi + lo, each a TF32 operand. Rounding to nearest with ties away is
+// adding half a TF32 ulp (0x1000) to the bit pattern and dropping the low
+// 13 bits: hi's are dropped here, lo's by the tensor core, which reads
+// only the top 19 bits of a .tf32 operand. (cvt.rna.tf32.f32 compiles to
+// the same add and mask behind an isfinite test and a select, twice the
+// instructions; attention's operands are finite, and a NaN or an infinity
+// stays one in hi + lo.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// d += a (16x8, row) b (8x8, col), TF32 in, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment and B fragment, each as its hi and lo parts.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// d += a b in split TF32, the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
+                                           const FragB& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// A fragment of rows {g, g + 8} and columns {t, t + 4} of a row-major fp32
+// tile (p: its element (0, 0); ld: its pitch).
+__device__ __forceinline__ FragA lda_rows(const float* p, int ld) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  FragA a;
+  split_tf32(p[g * ld + t], a.hi[0], a.lo[0]);
+  split_tf32(p[(g + 8) * ld + t], a.hi[1], a.lo[1]);
+  split_tf32(p[g * ld + t + 4], a.hi[2], a.lo[2]);
+  split_tf32(p[(g + 8) * ld + t + 4], a.hi[3], a.lo[3]);
+  return a;
+}
+
+// A fragment of four fp32 values held in registers (rows g, g + 8 at k
+// slots t, t + 4).
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2,
+                                         float a3) {
+  FragA a;
+  split_tf32(a0, a.hi[0], a.lo[0]);
+  split_tf32(a1, a.hi[1], a.lo[1]);
+  split_tf32(a2, a.hi[2], a.lo[2]);
+  split_tf32(a3, a.hi[3], a.lo[3]);
+  return a;
+}
+
+// The A fragment of one n8 tile of an accumulator in the k-slot order
+// above: rows g, g + 8 at columns 2t (slot t) and 2t + 1 (slot t + 4).
+__device__ __forceinline__ FragA acc_a(const float (&c)[4]) {
+  return split_a(c[0], c[2], c[1], c[3]);
+}
+
+// B fragment whose n index is a row of a row-major tile: B[k][n] = X[n][k]
+// (X's rows g, columns t and t + 4): k^T in q k^T.
+__device__ __forceinline__ FragB ldb_nmajor(const float* p, int ld) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  FragB b;
+  split_tf32(p[g * ld + t], b.hi[0], b.lo[0]);
+  split_tf32(p[g * ld + t + 4], b.hi[1], b.lo[1]);
+  return b;
+}
+
+// B fragment whose k index is a row of a row-major tile, in the k-slot
+// order of `acc_a`: B[slot t][n] = X[2t][n], B[slot t + 4][n] = X[2t + 1][n]
+// (column g): v in p v.
+__device__ __forceinline__ FragB ldb_kmajor(const float* p, int ld) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  FragB b;
+  split_tf32(p[2 * t * ld + g], b.hi[0], b.lo[0]);
+  split_tf32(p[(2 * t + 1) * ld + g], b.hi[1], b.lo[1]);
+  return b;
+}
+
+// The tensor core rounds toward zero as it accumulates, so a product
+// chained through one accumulator over a whole key axis (hundreds of
+// mma.sync steps) drifts tens of times further from the float64 result
+// than an fp32 sum does. The products below therefore start from a fresh
+// partial over at most 64 of their k values (eight k8 steps) and add it to
+// the running sum on the CUDA cores, in fp32 with round to nearest.
+
+// s[i][j] = a_i b_j^T over the head dim: a_i the warp's m16 row tile i of
+// a row-major tile (pointer at the first tile's row 0; tile i 16 i rows
+// further), b_j row block j of another (pointer at row 0), both at pitch
+// ld; k8 steps past D skipped. Each split B fragment feeds all MT tiles.
+template <int MT, int NT, int DT>
+__device__ __forceinline__ void scores_3xtf32(float (&s)[MT][NT][4],
+                                              const float* a, const float* b,
+                                              int ld, int D) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      s[i][j][0] = s[i][j][1] = s[i][j][2] = s[i][j][3] = 0.f;
+#pragma unroll
+  for (int c0 = 0; c0 < DT; c0 += 8) {
+    if (c0 * 8 >= D) break;
+    float part[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+#pragma unroll
+    for (int kc = c0; kc < c0 + 8 && kc < DT; ++kc) {
+      if (kc * 8 >= D) break;
+      FragA fa[MT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        fa[i] = lda_rows(a + 16 * i * ld + kc * 8, ld);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const FragB fb = ldb_nmajor(b + j * 8 * ld + kc * 8, ld);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_3xtf32(part[i][j], fa[i], fb);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][j][e] += part[i][j][e];
+  }
+}
+
+// acc[i][j] += p_i x: p_i the warp's m16 tile i of (16, 8 KT) accumulator
+// fragments (A in the k-slot order of `acc_a`), x KT * 8 rows of a
+// row-major tile at pitch ld (pointer at row 0, column 0 of the output's
+// columns); n8 tiles of the output past D skipped. KT <= 8: one partial
+// per call, over JMAX n8 tiles of the output at a time. Each split B
+// fragment feeds all MT tiles.
+template <int MT, int KT, int DT, int JMAX = 8>
+__device__ __forceinline__ void acc_pv(float (&acc)[MT][DT][4],
+                                       const float (&p)[MT][KT][4],
+                                       const float* x, int ld, int D) {
+  static_assert(KT <= 8, "one partial covers at most 64 k values");
+  constexpr int JB = DT < JMAX ? DT : JMAX;  // n8 tiles per partial
+#pragma unroll
+  for (int j0 = 0; j0 < DT; j0 += JB) {
+    if (j0 * 8 >= D) break;
+    float part[MT][JB][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < JB; ++j)
+        part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KT; ++kc) {
+      FragA pa[MT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) pa[i] = acc_a(p[i][kc]);
+#pragma unroll
+      for (int j = 0; j < JB; ++j) {
+        if ((j0 + j) * 8 >= D) break;
+        const FragB fb = ldb_kmajor(x + kc * 8 * ld + (j0 + j) * 8, ld);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_3xtf32(part[i][j], pa[i], fb);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < JB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j0 + j][e] += part[i][j][e];
+  }
+}
+
+// 4 bytes through cp.async (zero-filled where !valid).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Copy rows [0, ROWS) of a row-major fp32 tile in pieces of W floats
+// (PIECES a row, W = 4: 16-byte cp.async, W = 1: 4-byte), zero-filling rows
+// at or past `valid` (a stale row could hold a NaN, and 0 * NaN is NaN);
+// columns at or past D are not written. A thread keeps its columns and
+// steps its source and destination by whole passes of rows.
+template <int ROWS, int PIECES, int W, int NTHREADS>
+__device__ __forceinline__ void f32_copy_rows(float* dst, int ld,
+                                              const float* src,
+                                              long long row_stride, int valid,
+                                              int D) {
+  constexpr int kCols = PIECES > NTHREADS ? PIECES / NTHREADS : 1;
+  constexpr int kStep = PIECES > NTHREADS ? 1 : NTHREADS / PIECES;  // rows
+  static_assert(PIECES % NTHREADS == 0 || NTHREADS % PIECES == 0,
+                "whole rows a pass");
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    const int piece = threadIdx.x % PIECES + k * NTHREADS;
+    const int c = piece * W;
+    if (c >= D) continue;
+    int r = threadIdx.x / PIECES;
+    const float* s = src + r * row_stride + c;
+    float* d = dst + r * ld + c;
+    for (; r < ROWS; r += kStep, s += kStep * row_stride, d += kStep * ld) {
+      const bool ok = r < valid;
+      if constexpr (W == 4)
+        cp_async16(d, ok ? s : src, ok);
+      else
+        cp_async4(d, ok ? s : src, ok);
+    }
+  }
+}
+
+// Copy rows [0, ROWS) of D <= DMAX fp32 values (D % 4 == 0) into shared
+// memory of pitch ld floats through cp.async (`f32_copy_rows`): 16-byte
+// pieces where `vec` (src and the row stride give 16-byte aligned rows),
+// else 4-byte ones.
+template <int ROWS, int DMAX, int NTHREADS>
+__device__ __forceinline__ void f32_load_rows(float* dst, int ld,
+                                              const float* src,
+                                              long long row_stride, int valid,
+                                              int D, bool vec) {
+  if (vec)
+    f32_copy_rows<ROWS, DMAX / 4, 4, NTHREADS>(dst, ld, src, row_stride,
+                                               valid, D);
+  else
+    f32_copy_rows<ROWS, DMAX, 1, NTHREADS>(dst, ld, src, row_stride, valid,
+                                           D);
+}
+
 // Copy rows [0, ROWS) of D <= DMAX bf16 (D % 8 == 0; src and the row stride
 // 16-byte aligned) into a 128-byte-swizzled tile through cp.async,
 // zero-filling rows at or past `valid`. The loop runs over DMAX / 8 pieces
@@ -1170,13 +1223,15 @@ __device__ __forceinline__ void wg_store_rows(__nv_bfloat16* o, long long rs,
 __host__ __device__ constexpr int warp_tile_ld(int KT) { return 16 * KT + 8; }
 
 // The tensor-core tiles' condition on memory: every pointer and every
-// stride (in bf16 elements) gives 16-byte aligned rows.
+// stride (in elements of `elem` bytes, bf16 by default) gives 16-byte
+// aligned rows.
 template <int P, int S>
-bool rows_aligned16(const void* const (&p)[P], const long long (&st)[S]) {
+bool rows_aligned16(const void* const (&p)[P], const long long (&st)[S],
+                    int elem = 2) {
   for (const void* x : p)
     if (reinterpret_cast<uintptr_t>(x) & 15u) return false;
   for (long long s : st)
-    if (s % 8 != 0) return false;
+    if (s * elem % 16 != 0) return false;
   return true;
 }
 

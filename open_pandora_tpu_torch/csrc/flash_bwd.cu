@@ -15,11 +15,12 @@
 // contiguous (B, H, N) fp32; dq, dk, dv written contiguous.
 //
 // What bounds it on the card: the products, 14 N M D operations per (b, h)
-// over both kernels (dkv: S^T, dP^T, dV, dK; dq: S, dP, dQ; run as 20 with
-// the split operands of Precision below), against
-// 989 TFLOP/s of bf16 tensor cores; the bytes (q, k, v, do, the statistics
-// and the three gradients once each) are two orders of magnitude below
-// that at the UNet's shapes. The bf16 design puts every product on wgmma:
+// over both kernels (dkv: S^T, dP^T, dV, dK; dq: S, dP, dQ; bf16 runs them
+// as 20 with the split operands of Precision below, fp32 as 42 TF32
+// operations in split TF32), against 989 TFLOP/s of bf16 tensor cores (fp32:
+// 495 of TF32, 165 split); the bytes (q, k, v, do, the statistics and the
+// three gradients once each) are one to two orders of magnitude below that
+// at the UNet's shapes. The bf16 design puts every product on wgmma:
 //   - dkv (`flash_bwd_dkv_tc_kernel`): two warpgroups, 64 keys each, hold
 //     their K and V rows resident in 128-byte-swizzled shared memory while
 //     (q, do) tiles of 64 rows and their lse and di stream through a
@@ -38,10 +39,15 @@
 //     q and do resident; K and V tiles of 64 keys stream through the ring;
 //     S = q K^T and dP = do V^T as ss products, dS in registers, then
 //     dQ += dS K with K MN-major (twice, see Precision).
-// fp32 keeps the scalar kernels below (`flash_bwd_dkv_kernel`,
-// `flash_bwd_dq_kernel`): the narrow model's sites, held to 1e-4 against
-// the CPU, on the CUDA cores.
-//
+// fp32 keeps the same two kernels and loops on mma.sync m16n8k8 in split
+// TF32 (common.cuh), every one of the five products
+// (`flash_bwd_dkv_f32_kernel`, `flash_bwd_dq_f32_kernel`): four warps of
+// 16 resident rows (dkv: K and V; dq: q and do) and a two-stage ring of 64
+// streamed rows at D <= 64 (32 at D <= 128, so that the fp32 tiles fit two
+// blocks an SM); P^T, dS^T and dS stay in accumulator fragments and feed
+// the next product as its A operand in the accumulator's column order, so
+// do, q and K are read straight from their row-major tiles, with no
+// transposed copy (wgmma's tf32 form would want them K-major).
 // What was hard, and the answer:
 //   - Masking, as the forward masks: keys at or past M weigh exactly 0;
 //     with `causal`, key col > row + (M - N) scores kMaskValue. A row with
@@ -71,331 +77,19 @@
 //     split A operands. One block of two warpgroups per SM, whose launch
 //     bound lets ptxas use 255: it takes 245-250 with no spill (181-182 at
 //     DMAX = 64; the dq kernel 144-162; the build's ptxas log).
+//   - fp32 precision: the tensor core rounds toward zero as it
+//     accumulates, so dK, dV (over every q tile) and dQ (over every key
+//     tile) chained through one accumulator drifted tens of times further
+//     from the float64 result than an fp32 sum; each streamed tile's
+//     products go to a fresh partial, added on the CUDA cores (`acc_pv`),
+//     and S and dP sum 64 head columns at a time the same way
+//     (`scores_3xtf32`).
 #include "common.cuh"
 
 namespace pandora {
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// -- fp32: scalar FMAs on the CUDA cores ------------------------------------
-
-constexpr int kBQ = 64;          // query rows per tile
-constexpr int kBK = 64;          // key rows per tile
-constexpr int kThreads = 256;    // 16 x 16 thread grid
-constexpr int kLdS = kBK + 1;    // pitch of the fp32 p / ds tiles
-
-template <typename T>
-struct BwdSmem {
-  T* q;        // (kBQ, ld)
-  T* dout;     // (kBQ, ld)
-  T* k;        // (kBK, ld)
-  T* v;        // (kBK, ld)
-  float* p;    // (kBQ, kLdS): p[row][key]
-  float* ds;   // (kBQ, kLdS)
-  float* lse;  // (kBQ)
-  float* di;   // (kBQ)
-  int ld;
-
-  __device__ static BwdSmem carve(unsigned char* smem, int D) {
-    BwdSmem t;
-    t.ld = D + 2;
-    t.q = reinterpret_cast<T*>(smem);
-    t.dout = t.q + kBQ * t.ld;
-    t.k = t.dout + kBQ * t.ld;
-    t.v = t.k + kBK * t.ld;
-    t.p = reinterpret_cast<float*>(t.v + kBK * t.ld);
-    t.ds = t.p + kBQ * kLdS;
-    t.lse = t.ds + kBQ * kLdS;
-    t.di = t.lse + kBQ;
-    return t;
-  }
-};
-
-template <typename T>
-size_t bwd_smem_bytes(int D) {
-  return static_cast<size_t>(2 * kBQ + 2 * kBK) * (D + 2) * sizeof(T) +
-         static_cast<size_t>(2 * kBQ * kLdS + 2 * kBQ) * sizeof(float);
-}
-
-// Load the q and do rows [q0, q0 + kBQ) and their lse and di into shared
-// memory; rows at or past N are zero (and weigh nothing: see p_ds_tile).
-template <typename T>
-__device__ __forceinline__ void load_q_tile(
-    const BwdSmem<T>& sm, const T* q, long long qsn, const T* dout,
-    long long dsn, const float* lse, const float* di, int q0, int N,
-    int D) {
-  const int valid = min(kBQ, N - q0);
-  load_rows(sm.q, sm.ld, q + q0 * qsn, qsn, valid, kBQ, D);
-  load_rows(sm.dout, sm.ld, dout + q0 * dsn, dsn, valid, kBQ, D);
-  const int tid = threadIdx.x;
-  if (tid < kBQ) {
-    sm.lse[tid] = tid < valid ? lse[q0 + tid] : 0.f;
-    sm.di[tid] = tid < valid ? di[q0 + tid] : 0.f;
-  }
-}
-
-// p and ds of the (q tile, k tile) pair into sm.p / sm.ds. Thread (ty, tx)
-// computes rows ty + 16 i and key columns tx + 16 j (i, j < 4).
-template <typename T>
-__device__ __forceinline__ void p_ds_tile(const BwdSmem<T>& sm, int D,
-                                          int q0, int k0, int N, int M,
-                                          float scale, int causal,
-                                          int q_offset) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int ld = sm.ld;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-  for (int d = 0; d < D; d += 2) {
-    float2 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = Elem<T>::load2(sm.q + (ty + 16 * i) * ld + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Elem<T>::load2(sm.k + (tx + 16 * j) * ld + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s[i][j] = fmaf(a[i].y, b[j].y, fmaf(a[i].x, b[j].x, s[i][j]));
-  }
-  for (int d = 0; d < D; d += 2) {
-    float2 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = Elem<T>::load2(sm.dout + (ty + 16 * i) * ld + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Elem<T>::load2(sm.v + (tx + 16 * j) * ld + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dp[i][j] = fmaf(a[i].y, b[j].y, fmaf(a[i].x, b[j].x, dp[i][j]));
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int row = q0 + r;
-    const float lse = sm.lse[r];
-    const float di = sm.di[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const int col = k0 + c;
-      float p = 0.f;
-      if (row < N && col < M) {
-        float x = s[i][j] * scale;
-        if (causal && col > row + q_offset) x = kMaskValue;
-        p = expf(x - lse);
-      }
-      sm.p[r * kLdS + c] = p;
-      sm.ds[r * kLdS + c] = p * (dp[i][j] - di) * scale;
-    }
-  }
-}
-
-// dk, dv of one key tile: grid (key tiles, H, B), query tiles inner.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk,
-                     T* __restrict__ dv, int N, int M, int H, int D,
-                     long long qsb, long long qsn, long long qsh,
-                     long long ksb, long long ksn, long long ksh,
-                     long long vsb, long long vsn, long long vsh,
-                     long long dsb, long long dsn, long long dsh, float scale,
-                     int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const BwdSmem<T> sm = BwdSmem<T>::carve(smem, D);
-  constexpr int kNJ = DMAX / 32;
-  const int k0 = blockIdx.x * kBK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int ld = sm.ld;
-  const int q_offset = causal ? (M - N) : 0;
-
-  load_rows(sm.k, ld, k + b * ksb + k0 * ksn + h * ksh, ksn,
-            min(kBK, M - k0), kBK, D);
-  load_rows(sm.v, ld, v + b * vsb + k0 * vsn + h * vsh, vsn,
-            min(kBK, M - k0), kBK, D);
-  const T* qb = q + b * qsb + h * qsh;
-  const T* db = dout + b * dsb + h * dsh;
-  const long long stat = (static_cast<long long>(b) * H + h) * N;
-
-  float acc_k[4][kNJ][2], acc_v[4][kNJ][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j)
-      acc_k[i][j][0] = acc_k[i][j][1] = acc_v[i][j][0] = acc_v[i][j][1] = 0.f;
-
-  // query tiles wholly above the diagonal see none of these keys; skipping
-  // them is exact when every row keeps a key (M >= N)
-  int q_begin = 0;
-  if (causal && q_offset >= 0) q_begin = max(0, k0 - q_offset) / kBQ * kBQ;
-  for (int q0 = q_begin; q0 < N; q0 += kBQ) {
-    __syncthreads();  // the last tile's readers are done
-    load_q_tile(sm, qb, qsn, db, dsn, lse + stat, di + stat, q0, N, D);
-    __syncthreads();
-    p_ds_tile(sm, D, q0, k0, N, M, scale, causal, q_offset);
-    __syncthreads();
-    const int rows = min(kBQ, N - q0);
-    for (int r = 0; r < rows; ++r) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = sm.p[r * kLdS + ty + 16 * i];
-        ds[i] = sm.ds[r * kLdS + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int col = 2 * (tx + 16 * j);
-        if (col < D) {
-          const float2 g = Elem<T>::load2(sm.dout + r * ld + col);
-          const float2 x = Elem<T>::load2(sm.q + r * ld + col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc_v[i][j][0] = fmaf(p[i], g.x, acc_v[i][j][0]);
-            acc_v[i][j][1] = fmaf(p[i], g.y, acc_v[i][j][1]);
-            acc_k[i][j][0] = fmaf(ds[i], x.x, acc_k[i][j][0]);
-            acc_k[i][j][1] = fmaf(ds[i], x.y, acc_k[i][j][1]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= M) continue;
-    const long long off = ((static_cast<long long>(b) * M + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const int col = 2 * (tx + 16 * j);
-      if (col < D) {
-        Elem<T>::store2(dk + off + col, acc_k[i][j][0], acc_k[i][j][1]);
-        Elem<T>::store2(dv + off + col, acc_v[i][j][0], acc_v[i][j][1]);
-      }
-    }
-  }
-}
-
-// dq of one query tile: grid (query tiles, H, B), key tiles inner.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ di, T* __restrict__ dq, int N,
-                    int M, int H, int D, long long qsb, long long qsn,
-                    long long qsh, long long ksb, long long ksn,
-                    long long ksh, long long vsb, long long vsn,
-                    long long vsh, long long dsb, long long dsn,
-                    long long dsh, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const BwdSmem<T> sm = BwdSmem<T>::carve(smem, D);
-  constexpr int kNJ = DMAX / 32;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int ld = sm.ld;
-  const int q_offset = causal ? (M - N) : 0;
-  const long long stat = (static_cast<long long>(b) * H + h) * N;
-
-  load_q_tile(sm, q + b * qsb + h * qsh, qsn, dout + b * dsb + h * dsh, dsn,
-              lse + stat, di + stat, q0, N, D);
-  const T* kb = k + b * ksb + h * ksh;
-  const T* vb = v + b * vsb + h * vsh;
-
-  float acc[4][kNJ][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j][0] = acc[i][j][1] = 0.f;
-
-  // key tiles wholly above the diagonal: exact to skip when M >= N
-  int kv_end = M;
-  if (causal && q_offset >= 0) kv_end = min(M, q0 + kBQ + q_offset);
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    const int kvalid = min(kBK, M - k0);
-    __syncthreads();
-    load_rows(sm.k, ld, kb + k0 * ksn, ksn, kvalid, kBK, D);
-    load_rows(sm.v, ld, vb + k0 * vsn, vsn, kvalid, kBK, D);
-    __syncthreads();
-    p_ds_tile(sm, D, q0, k0, N, M, scale, causal, q_offset);
-    __syncthreads();
-    for (int c = 0; c < kvalid; ++c) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sm.ds[(ty + 16 * i) * kLdS + c];
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int col = 2 * (tx + 16 * j);
-        if (col < D) {
-          const float2 x = Elem<T>::load2(sm.k + c * ld + col);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][j][0] = fmaf(ds[i], x.x, acc[i][j][0]);
-            acc[i][j][1] = fmaf(ds[i], x.y, acc[i][j][1]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= N) continue;
-    const long long off = ((static_cast<long long>(b) * N + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      const int col = 2 * (tx + 16 * j);
-      if (col < D) Elem<T>::store2(dq + off + col, acc[i][j][0], acc[i][j][1]);
-    }
-  }
-}
-
-template <typename T, int DMAX>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* di,
-                       void* dq, void* dk, void* dv, int B, int N, int M,
-                       int H, int D, const long long* st, float scale,
-                       int causal, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<T>(D);
-  auto dkv = flash_bwd_dkv_kernel<T, DMAX>;
-  auto dqk = flash_bwd_dq_kernel<T, DMAX>;
-  cudaError_t err = allow_smem(dkv, smem);
-  if (err == cudaSuccess) err = allow_smem(dqk, smem);
-  if (err != cudaSuccess) return err;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dp = static_cast<const T*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  const float* ip = static_cast<const float*>(di);
-  dkv<<<dim3((M + kBK - 1) / kBK, H, B), kThreads, smem, stream>>>(
-      qp, kp, vp, dp, lp, ip, static_cast<T*>(dk), static_cast<T*>(dv), N,
-      M, H, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dqk<<<dim3((N + kBQ - 1) / kBQ, H, B), kThreads, smem, stream>>>(
-      qp, kp, vp, dp, lp, ip, static_cast<T*>(dq), N, M, H, D, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      scale, causal);
-  return cudaGetLastError();
-}
 
 // -- bf16: wgmma ------------------------------------------------------------
 
@@ -414,14 +108,6 @@ struct TcArgs {
   float scale;
   float scale_log2;  // scale * log2(e)
 };
-
-// 4 bytes through cp.async (zero-filled where !valid).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
 
 // Shared-memory plan of both kernels: two resident tiles of kRes = 128
 // rows (dkv: K and V; dq: q and do), kStages ring stages, each of two
@@ -821,6 +507,300 @@ cudaError_t dispatch_tc(const TcArgs& a, int B, cudaStream_t stream) {
                    : launch_tc<128, kCausal>(a, B, stream);
 }
 
+// -- fp32: split-TF32 tiles on mma.sync ---------------------------------------
+
+struct F32BwdArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse;  // (B, H, N)
+  const float* di;   // (B, H, N)
+  float* dq;
+  float* dk;
+  float* dv;
+  int N, M, H, D;
+  long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, dsb, dsn, dsh;
+  float scale;
+  float scale_log2;  // scale * log2(e)
+  bool vec;          // every row 16-byte aligned: 16-byte copies
+};
+
+// Both kernels: four warps of 16 resident rows each (dkv: 64 keys of K and
+// V; dq: 64 rows of q and do), and a two-stage cp.async ring of streamed
+// tiles of BS rows (dkv: q and do with their lse and di; dq: K and V), all
+// fp32 at pitch LD. BS is 64 at D <= 64 (two blocks share an SM) and 32 at
+// D <= 128.
+template <int DMAX>
+struct F32Bwd {
+  static constexpr int kThreads = 128;
+  static constexpr int kRes = 64;
+  static constexpr int BS = DMAX <= 64 ? 64 : 32;
+  static constexpr int LD = DMAX + 4;
+  static constexpr int NT = BS / 8;    // n8 tiles of a streamed tile
+  static constexpr int DT = DMAX / 8;  // k8 chunks / n8 tiles of the head
+  static constexpr int STAGE = 2 * BS * LD + 2 * BS;  // floats: 2 tiles, stats
+  static constexpr size_t smem_bytes =
+      (static_cast<size_t>(2 * kRes * LD) + 2 * STAGE) * sizeof(float);
+};
+
+// Write a warp's rows g and g + 8 (at row0 + g, skipped at or past
+// `valid`) of a (16, D) accumulator as fp32 rows of D.
+template <int DT>
+__device__ __forceinline__ void f32_store_rows(float* out,
+                                               long long row_stride,
+                                               const float (&acc)[DT][4],
+                                               int row0, int valid, int D) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + g + 8 * hh;
+    if (r >= valid) continue;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < D)
+        Elem<float>::store2(out + r * row_stride + col, acc[j][2 * hh],
+                            acc[j][2 * hh + 1]);
+    }
+  }
+}
+
+// dk, dv of 64 keys: grid (key tiles, H, B), q tiles inner. Per q tile a
+// warp forms S^T = K q^T and dP^T = V do^T for its 16 keys, P^T and dS^T
+// on the accumulator fragments, then dV += P^T do and dK += dS^T q.
+template <int DMAX, bool kCausal, bool kFull>
+__global__ void __launch_bounds__(F32Bwd<DMAX>::kThreads)
+flash_bwd_dkv_f32_kernel(const F32BwdArgs a) {
+  using L = F32Bwd<DMAX>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + L::kRes * L::LD;
+  float* ring = sv + L::kRes * L::LD;  // stage s: q, do, lse, di
+  const int k0 = blockIdx.x * L::kRes;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int t = threadIdx.x & 3;
+  const int key = k0 + warp * 16 + ((threadIdx.x & 31) >> 2);  // row g
+  const int q_offset = kCausal ? a.M - a.N : 0;
+  const int D = kFull ? DMAX : a.D;  // kFull: D == DMAX, the checks fold
+
+  const int kvalid = min(L::kRes, a.M - k0);
+  f32_load_rows<L::kRes, DMAX, L::kThreads>(
+      sk, L::LD, a.k + b * a.ksb + k0 * a.ksn + h * a.ksh, a.ksn, kvalid, D,
+      a.vec);
+  f32_load_rows<L::kRes, DMAX, L::kThreads>(
+      sv, L::LD, a.v + b * a.vsb + k0 * a.vsn + h * a.vsh, a.vsn, kvalid, D,
+      a.vec);
+
+  const float* qb = a.q + b * a.qsb + h * a.qsh;
+  const float* db = a.dout + b * a.dsb + h * a.dsh;
+  const long long stat = (static_cast<long long>(b) * a.H + h) * a.N;
+  // q tiles wholly above the diagonal see none of these keys; skipping them
+  // is exact when every row keeps a key (M >= N)
+  int q_begin = 0;
+  if (kCausal && q_offset >= 0) q_begin = max(0, k0 - q_offset) / L::BS * L::BS;
+  const int ntiles = (a.N - q_begin + L::BS - 1) / L::BS;
+  auto issue = [&](int it) {
+    const int q0 = q_begin + it * L::BS;
+    const int valid = min(L::BS, a.N - q0);
+    float* st = ring + (it & 1) * L::STAGE;
+    f32_load_rows<L::BS, DMAX, L::kThreads>(st, L::LD, qb + q0 * a.qsn,
+                                            a.qsn, valid, D, a.vec);
+    f32_load_rows<L::BS, DMAX, L::kThreads>(st + L::BS * L::LD, L::LD,
+                                            db + q0 * a.dsn, a.dsn, valid, D,
+                                            a.vec);
+    if (threadIdx.x < 2 * L::BS) {
+      const int r = threadIdx.x % L::BS;
+      const float* src = threadIdx.x < L::BS ? a.lse : a.di;
+      cp_async4(st + 2 * L::BS * L::LD + threadIdx.x,
+                src + stat + q0 + (r < valid ? r : 0), r < valid);
+    }
+    cp_async_commit();
+  };
+
+  float dk[1][L::DT][4], dv[1][L::DT][4];
+#pragma unroll
+  for (int j = 0; j < L::DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[0][j][e] = dv[0][j][e] = 0.f;
+  const float* kw = sk + warp * 16 * L::LD;
+  const float* vw = sv + warp * 16 * L::LD;
+  // keys past M, or a causal diagonal, in this warp's 16 keys
+  const bool edge = k0 + warp * 16 + 16 > a.M;
+  if (ntiles > 0) issue(0);  // one group with K and V
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it (and K, V) landed; tile it - 1's stage free
+    if (it + 1 < ntiles) issue(it + 1);
+    const int q0 = q_begin + it * L::BS;
+    const float* qs = ring + (it & 1) * L::STAGE;
+    const float* dos = qs + L::BS * L::LD;
+    const float* lse = dos + L::BS * L::LD;
+    const float* di = lse + L::BS;
+
+    float s[1][L::NT][4], dp[1][L::NT][4];
+    scores_3xtf32<1, L::NT, L::DT>(s, kw, qs, L::LD, D);
+    scores_3xtf32<1, L::NT, L::DT>(dp, vw, dos, L::LD, D);
+    // P^T and dS^T: row key (+ 8), column q0 + 8 j + 2 t (+ 1)
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * t);
+      const float2 d2 = *reinterpret_cast<const float2*>(di + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lse2 = ((e & 1) ? l2.y : l2.x) * kLog2e;
+        const float dd = (e & 1) ? d2.y : d2.x;
+        bool masked = false, past = false;
+        if (kCausal || edge) {
+          const int kr = key + 8 * (e >> 1);
+          past = kr >= a.M;
+          masked = kCausal && (kr > q0 + 8 * j + 2 * t + (e & 1) + q_offset);
+        }
+        const float p =
+            past ? 0.f : tc_p(s[0][j][e], a.scale_log2, lse2, masked);
+        s[0][j][e] = p;
+        dp[0][j][e] = p * (dp[0][j][e] - dd) * a.scale;
+      }
+    }
+    acc_pv<1, L::NT, L::DT>(dv, s, dos, L::LD, D);
+    acc_pv<1, L::NT, L::DT>(dk, dp, qs, L::LD, D);
+  }
+
+  const long long row_stride = static_cast<long long>(a.H) * D;
+  const long long off = (static_cast<long long>(b) * a.M + k0) * row_stride +
+                        static_cast<long long>(h) * D;
+  f32_store_rows<L::DT>(a.dk + off, row_stride, dk[0], warp * 16, kvalid, D);
+  f32_store_rows<L::DT>(a.dv + off, row_stride, dv[0], warp * 16, kvalid, D);
+}
+
+// dq of 64 q rows: grid (q tiles, H, B), key tiles inner. Per key tile a
+// warp forms S = q K^T and dP = do V^T for its 16 rows, dS on the
+// accumulator fragments, then dQ += dS K.
+template <int DMAX, bool kCausal, bool kFull>
+__global__ void __launch_bounds__(F32Bwd<DMAX>::kThreads)
+flash_bwd_dq_f32_kernel(const F32BwdArgs a) {
+  using L = F32Bwd<DMAX>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sdo = sq + L::kRes * L::LD;
+  float* ring = sdo + L::kRes * L::LD;  // stage s: K, V
+  const int q0 = blockIdx.x * L::kRes;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int t = threadIdx.x & 3;
+  const int row = q0 + warp * 16 + ((threadIdx.x & 31) >> 2);  // row g
+  const int q_offset = kCausal ? a.M - a.N : 0;
+  const int D = kFull ? DMAX : a.D;  // kFull: D == DMAX, the checks fold
+
+  const int qvalid = min(L::kRes, a.N - q0);
+  f32_load_rows<L::kRes, DMAX, L::kThreads>(
+      sq, L::LD, a.q + b * a.qsb + q0 * a.qsn + h * a.qsh, a.qsn, qvalid, D,
+      a.vec);
+  f32_load_rows<L::kRes, DMAX, L::kThreads>(
+      sdo, L::LD, a.dout + b * a.dsb + q0 * a.dsn + h * a.dsh, a.dsn, qvalid,
+      D, a.vec);
+  const long long stat = (static_cast<long long>(b) * a.H + h) * a.N;
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    lse2[hh] = r < a.N ? a.lse[stat + r] * kLog2e : 0.f;
+    dd[hh] = r < a.N ? a.di[stat + r] : 0.f;
+  }
+
+  const float* kb = a.k + b * a.ksb + h * a.ksh;
+  const float* vb = a.v + b * a.vsb + h * a.vsh;
+  // key tiles wholly above the diagonal: exact to skip when M >= N
+  int kv_end = a.M;
+  if (kCausal && q_offset >= 0) kv_end = min(a.M, q0 + L::kRes + q_offset);
+  const int ntiles = (kv_end + L::BS - 1) / L::BS;
+  auto issue = [&](int it) {
+    const int c0 = it * L::BS;
+    const int valid = min(L::BS, a.M - c0);
+    float* st = ring + (it & 1) * L::STAGE;
+    f32_load_rows<L::BS, DMAX, L::kThreads>(st, L::LD, kb + c0 * a.ksn,
+                                            a.ksn, valid, D, a.vec);
+    f32_load_rows<L::BS, DMAX, L::kThreads>(st + L::BS * L::LD, L::LD,
+                                            vb + c0 * a.vsn, a.vsn, valid, D,
+                                            a.vec);
+    cp_async_commit();
+  };
+
+  float dq[1][L::DT][4];
+#pragma unroll
+  for (int j = 0; j < L::DT; ++j)
+    dq[0][j][0] = dq[0][j][1] = dq[0][j][2] = dq[0][j][3] = 0.f;
+  const float* qw = sq + warp * 16 * L::LD;
+  const float* dw = sdo + warp * 16 * L::LD;
+  issue(0);  // one group with q and do
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it (and q, do) landed; tile it - 1's stage free
+    if (it + 1 < ntiles) issue(it + 1);
+    const int c0 = it * L::BS;
+    const float* ks = ring + (it & 1) * L::STAGE;
+    const float* vs = ks + L::BS * L::LD;
+
+    float s[1][L::NT][4], dp[1][L::NT][4];
+    scores_3xtf32<1, L::NT, L::DT>(s, qw, ks, L::LD, D);
+    scores_3xtf32<1, L::NT, L::DT>(dp, dw, vs, L::LD, D);
+    // dS: row (+ 8), key column c0 + 8 j + 2 t (+ 1)
+    const bool edge = c0 + L::BS > a.M;
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        bool masked = false, past = false;
+        if (kCausal || edge) {
+          const int col = c0 + 8 * j + 2 * t + (e & 1);
+          past = col >= a.M;
+          masked = kCausal && col > row + 8 * hh + q_offset;
+        }
+        const float p =
+            past ? 0.f : tc_p(s[0][j][e], a.scale_log2, lse2[hh], masked);
+        dp[0][j][e] = p * (dp[0][j][e] - dd[hh]) * a.scale;
+      }
+    acc_pv<1, L::NT, L::DT>(dq, dp, ks, L::LD, D);
+  }
+
+  const long long row_stride = static_cast<long long>(a.H) * D;
+  f32_store_rows<L::DT>(a.dq + (static_cast<long long>(b) * a.N + q0) *
+                                   row_stride + static_cast<long long>(h) * D,
+                        row_stride, dq[0], warp * 16, qvalid, D);
+}
+
+template <int DMAX, bool kCausal, bool kFull>
+cudaError_t launch_f32(const F32BwdArgs& a, int B, cudaStream_t stream) {
+  using L = F32Bwd<DMAX>;
+  auto dkv = flash_bwd_dkv_f32_kernel<DMAX, kCausal, kFull>;
+  auto dqk = flash_bwd_dq_f32_kernel<DMAX, kCausal, kFull>;
+  cudaError_t err = allow_smem(dkv, L::smem_bytes);
+  if (err == cudaSuccess) err = allow_smem(dqk, L::smem_bytes);
+  if (err != cudaSuccess) return err;
+  dkv<<<dim3((a.M + L::kRes - 1) / L::kRes, a.H, B), L::kThreads,
+        L::smem_bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((a.N + L::kRes - 1) / L::kRes, a.H, B), L::kThreads,
+        L::smem_bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The kernels at DMAX, their kFull instances where D == DMAX.
+template <bool kCausal>
+cudaError_t dispatch_f32(const F32BwdArgs& a, int B, cudaStream_t stream) {
+  if (a.D <= 64)
+    return a.D == 64 ? launch_f32<64, kCausal, true>(a, B, stream)
+                     : launch_f32<64, kCausal, false>(a, B, stream);
+  return a.D == 128 ? launch_f32<128, kCausal, true>(a, B, stream)
+                    : launch_f32<128, kCausal, false>(a, B, stream);
+}
+
 }  // namespace
 }  // namespace pandora
 
@@ -856,12 +836,19 @@ extern "C" int pandora_flash_bwd(
                                    : dispatch_tc<false>(a, B, s));
   }
   if (dtype != kFloat32) return static_cast<int>(cudaErrorInvalidValue);
+  const void* const ptrs[4] = {q, k, v, dout};
   const long long st[12] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                             v_sb, v_sn, v_sh, d_sb, d_sn, d_sh};
-  cudaError_t err =
-      D <= 64 ? launch_f32<float, 64>(q, k, v, dout, lse, di, dq, dk, dv, B,
-                                      N, M, H, D, st, scale, causal, s)
-              : launch_f32<float, 128>(q, k, v, dout, lse, di, dq, dk, dv, B,
-                                       N, M, H, D, st, scale, causal, s);
-  return static_cast<int>(err);
+  const F32BwdArgs a{static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v),
+                     static_cast<const float*>(dout),
+                     static_cast<const float*>(lse),
+                     static_cast<const float*>(di), static_cast<float*>(dq),
+                     static_cast<float*>(dk), static_cast<float*>(dv), N, M,
+                     H, D, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn,
+                     v_sh, d_sb, d_sn, d_sh, scale, scale * kLog2e,
+                     rows_aligned16(ptrs, st, 4)};
+  return static_cast<int>(causal ? dispatch_f32<true>(a, B, s)
+                                 : dispatch_f32<false>(a, B, s));
 }

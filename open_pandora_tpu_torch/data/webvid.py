@@ -17,8 +17,9 @@ seeds:
 The metadata is read with the stdlib csv module, with pandas'
 `read_csv(dtype=str)` semantics for missing values; video files are
 decoded and resized with OpenCV, imported when a clip is read (the card's
-machine has none). One process reads everything (the JAX loader's
-per-host sharding waits for the multi-device slice).
+machine has none). Under several data ranks each process loads only its
+rows of every global batch (`PrefetchLoader`'s `shard`, set by the
+trainer from the mesh), where the JAX loader shards by host.
 """
 
 from __future__ import annotations

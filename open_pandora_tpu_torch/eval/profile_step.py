@@ -77,9 +77,9 @@ from open_pandora_tpu_torch.train.step import TrainState, make_finetune_step
 
 # (class, substrings of the lower-cased kernel name); the first match wins
 KERNEL_CLASSES = (
-    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel",
-                   "flash_fwd_wide_kernel")),
-    ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+    ("flash_fwd", ("flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
+                   "flash_fwd_tc_kernel", "flash_fwd_wide_kernel")),
+    ("flash_bwd", ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel",
                    "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")),
     ("small_attn_fwd", ("small_attn_fwd_kernel",
                         "small_attn_fwd_tc_kernel")),

@@ -19,6 +19,9 @@ from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.attention_xla import NEG_INF, causal_mask
 
 BWD_MAX_HEAD_DIM = 128
+# the masked score as the kernels hold it (kMaskValue, an fp32 value), so
+# that a float64 reference masks with the same number as fp32 does
+MASK_VALUE = float(torch.tensor(NEG_INF, dtype=torch.float32))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -28,31 +31,38 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The kernel's function in plain PyTorch: returns o (B, N, H, D) in
     q.dtype and the fp32 log-sum-exp (B, H, N). Scores and statistics are
     fp32; the unnormalised probabilities are cast to v's dtype for the
-    product with v, as the kernel does."""
+    product with v, as the kernel does. float64 inputs stay float64
+    throughout (the card's float64 reference)."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     s = _scores(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhnm,bmhd->bnhd", p.to(v.dtype).float(), v.float())
+    acc = torch.einsum("bhnm,bmhd->bnhd", _up(p.to(v.dtype)), _up(v))
     l_inv = torch.where(l == 0, 1.0, 1.0 / l)            # (B, H, N, 1)
     o = acc * l_inv.permute(0, 2, 1, 3)
     lse = (m + torch.log(torch.clamp(l, min=1e-37)))[..., 0]
     return o.to(q.dtype), lse
 
 
+def _up(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32, or float64 where it is float64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _scores(q, k, causal, scale):
-    """fp32 scaled scores (B, H, N, M), causal entries masked."""
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    """fp32 (float64 for float64 inputs) scaled scores (B, H, N, M), causal
+    entries masked."""
+    s = torch.einsum("bnhd,bmhd->bhnm", _up(q), _up(k)) * scale
     if causal:
         s = torch.where(causal_mask(s.shape[-2], s.shape[-1], s.device), s,
-                        NEG_INF)
+                        MASK_VALUE)
     return s
 
 
 def _row_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """di = rowsum(o do) in fp32, (B, H, N) contiguous (`_bwd`'s di)."""
-    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    return (_up(o) * _up(do)).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -65,15 +75,15 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     """The backward kernel's function in plain PyTorch (`_bwd`): p
     recomputed from the forward's LSE, di = rowsum(o do), dv = p^T do,
     dp = do v^T, ds = p (dp - di) scale, dq = ds k, dk = ds^T q; all in
-    fp32, outputs in the inputs' dtypes."""
+    fp32 (float64 for float64 inputs), outputs in the inputs' dtypes."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
-    dof = do.float()
+    p = torch.exp(_scores(q, k, causal, scale) - _up(lse)[..., None])
+    dof = _up(do)
     dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
-    dp = torch.einsum("bnhd,bmhd->bhnm", dof, v.float())
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, _up(v))
     ds = p * (dp - _row_dot(o, do)[..., None]) * scale
-    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k.float())
-    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q.float())
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, _up(k))
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, _up(q))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -144,7 +154,8 @@ flash_attention_bwd.launches = 0
 
 
 def _flash_cuda(q, k, v, *, causal, sm_scale):
-    # bf16 rows go through 16-byte cp.async copies, fp32 through 32-bit words
+    # bf16 rows go through 16-byte cp.async copies; fp32 rows through
+    # 16-byte copies where every row is 16-byte aligned, else 4-byte ones
     _check(q, k, v, 16 if q.dtype == torch.bfloat16 else 4)
     B, N, H, D = q.shape
     M = k.shape[1]
@@ -163,7 +174,8 @@ def _flash_cuda(q, k, v, *, causal, sm_scale):
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, sm_scale):
-    # bf16 rows go through 16-byte cp.async copies, fp32 through 32-bit words
+    # bf16 rows go through 16-byte cp.async copies; fp32 rows through
+    # 16-byte copies where every row is 16-byte aligned, else 4-byte ones
     align = 16 if q.dtype == torch.bfloat16 else 4
     if do.stride(-1) != 1 or do.data_ptr() % align or any(
             (s * do.element_size()) % align for s in do.stride()[:-1]):

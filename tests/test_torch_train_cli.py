@@ -230,6 +230,19 @@ def test_full_width_train_step_launches_as_predicted(monkeypatch):
     assert (want["flash"], want["group_norm"]) == (37, 374)
 
 
+def test_fp32_train_step_prediction():
+    """chip_smoke phase 6b's per-step prediction under dtype_policy=fp32:
+    the UNet in training takes the unfused route at any dtype (the traced
+    bf16 step above), and the VAE's 17 encodes run one flash launch each
+    and, in fp32, the plain GroupNorm: 37 flash and 10 flash backward a
+    step, no GroupNorm kernel."""
+    cfg = PandoraConfig()
+    want = chip_smoke.predicted_train_launches(cfg, 320, 512, batch=1,
+                                               frames=17, bf16=False)
+    assert {k: v for k, v in want.items() if v} == {
+        "flash": 37, "flash_bwd": 10, "small": 68, "small_bwd": 34}
+
+
 def test_llm_stage_launches_as_predicted():
     """chip_smoke's per-step prediction for phase 8 at full width
     (PandoraConfig(), 320x512, batch 1), from the routing functions alone:
@@ -259,3 +272,28 @@ def test_llm_stage_launches_as_predicted():
             assert calls > 0
             assert attention_route(q, k, causal=causal, masked=masked,
                                    on_device=True) == "plain", (stage, q, k)
+
+
+def _flat(tree, prefix=""):
+    """{dotted.path: leaf} of a nested dict."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flat(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in (REPO / "configs").glob("*.yaml")))
+def test_shipped_config_loads_as_in_jax(name):
+    """Every shipped config file through both packages' load_config: the
+    flattened dataclasses.asdict trees are equal, key for key (alignment.yaml
+    sets the root switch do_alignment)."""
+    from open_pandora_tpu.core.config import load_config as jax_load_config
+
+    path = [str(REPO / "configs" / name)]
+    ours = _flat(dataclasses.asdict(load_config(path)))
+    theirs = _flat(dataclasses.asdict(jax_load_config(path)))
+    assert ours == theirs

@@ -228,6 +228,96 @@ def test_small_attention_split_operands_hold_the_bound(d):
         assert (x1 - r).abs().max() >= (x2 - r).abs().max(), name
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32: x's fp32 mantissa rounded to 10 bits, to nearest
+    with ties away from zero (the sign bit stays apart from the magnitude
+    the carry runs through)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, n_parts):
+    """einsum(eq, a, b) as the fp32 flash kernels run it on the tensor
+    cores: each operand x = hi + lo (hi = tf32(x), lo = tf32(x - hi)), the
+    sum lo_a hi_b + hi_a lo_b + hi_a hi_b accumulated in fp32 (each TF32
+    product is exact in fp32); n_parts = 1: hi_a hi_b alone, one TF32
+    pass."""
+    ah, bh = _tf32(a), _tf32(b)
+    if n_parts == 1:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _tf32_emulation(q, k, v, do, o, lse, scale, causal, n_parts):
+    """The fp32 flash kernels' arithmetic in plain PyTorch: every product
+    (S, P v; S, dP, dV, dK, dQ) by `_tf32_product`, the softmax and ds in
+    fp32; the backward from the plain forward's o and LSE, as chip_smoke
+    phase 3 feeds it. Returns o, dq, dk, dv."""
+    def scores():
+        s = _tf32_product("bnhd,bmhd->bhnm", q, k, n_parts) * scale
+        if causal:
+            s = torch.where(tfa.causal_mask(s.shape[-2], s.shape[-1],
+                                            s.device), s, tfa.MASK_VALUE)
+        return s
+
+    s = scores()
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    o_k = (_tf32_product("bhnm,bmhd->bnhd", p, v, n_parts)
+           / p.sum(-1, keepdim=True).permute(0, 2, 1, 3))
+    p = torch.exp(scores() - lse[..., None])
+    dp = _tf32_product("bnhd,bmhd->bhnm", do, v, n_parts)
+    ds = p * (dp - tfa._row_dot(o, do)[..., None]) * scale
+    return (o_k, _tf32_product("bhnm,bmhd->bnhd", ds, k, n_parts),
+            _tf32_product("bhnm,bnhd->bmhd", ds, q, n_parts),
+            _tf32_product("bhnm,bnhd->bmhd", p, do, n_parts))
+
+
+# (b, n, m, h, d, causal): the head widths of the fp32 kernels' two tile
+# sizes (32, 64 in the D <= 64 tile, 128), causal N < M and N > M with a
+# ragged M
+@pytest.mark.parametrize("b,n,m,h,d,causal", [
+    (2, 128, 128, 2, 32, False),
+    (2, 128, 128, 2, 64, False),
+    (1, 128, 128, 2, 128, False),
+    (1, 96, 130, 2, 64, True),
+    (1, 130, 96, 2, 128, True),
+])
+def test_split_tf32_holds_the_ref64_rule(b, n, m, h, d, causal):
+    """Why the fp32 flash kernels run every product as three TF32 products:
+    so emulated, o, dq, dk and dv stay within chip_smoke's fp32 rule
+    (max|x - ref64| <= 8 max|ref32 - ref64|, ref64 the plain version in
+    float64 on the same inputs) and the LSE within 1e-3; one TF32 pass
+    breaks the rule for every one of them."""
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays(
+        11, (b, n, h, d), (b, m, h, d), (b, m, h, d), (b, n, h, d)))
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_plain(q, k, v, causal=causal)
+    ref32 = (o, *tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                               causal=causal))
+    q64, k64, v64, do64, o64, lse64 = (t.double()
+                                       for t in (q, k, v, do, o, lse))
+    ref64 = (tfa.flash_attention_plain(q64, k64, v64, causal=causal)[0],
+             *tfa.flash_attention_bwd_plain(q64, k64, v64, o64, lse64, do64,
+                                            causal=causal))
+    split = _tf32_emulation(q, k, v, do, o, lse, scale, causal, 2)
+    single = _tf32_emulation(q, k, v, do, o, lse, scale, causal, 1)
+    for name, r32, r64, x3, x1 in zip(("o", "dq", "dk", "dv"), ref32, ref64,
+                                      split, single):
+        err, bound = chip_smoke._ref64_bound(x3, r32, r64)
+        assert err <= bound, (name, err, bound)
+        err1, _ = chip_smoke._ref64_bound(x1, r32, r64)
+        assert err1 > bound, (name, err1, bound)
+    lse_k = torch.logsumexp(_tf32_product(
+        "bnhd,bmhd->bhnm", q, k, 2) * scale + torch.where(
+            tfa.causal_mask(n, m, q.device), 0.0, tfa.MASK_VALUE)
+        if causal else _tf32_product("bnhd,bmhd->bhnm", q, k, 2) * scale,
+        -1)
+    assert (lse_k - lse).abs().max() <= 1e-3
+
+
 def test_device_branch_keeps_gradients(monkeypatch):
     """On a tensor off the CPU the wrappers launch their kernels, whose
     outputs carry no graph of their own; gradients must still reach q, k
