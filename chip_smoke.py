@@ -11,8 +11,9 @@ Phases, each printing its own lines and raising on failure:
   3. kernels  each CUDA kernel against its plain PyTorch version at every
               shape of the slices' main paths (320x512 and 576x1024), plus
               ragged cases (and fp32 ones for the kernels that take fp32;
-              rows 1 and 9 at fp32 also within 8 max|ref32 - ref64| of the
-              float64 plain version, and at the full-width fp32 shapes);
+              rows 1, 2, 9 and 10 at fp32 also within 8 max|ref32 - ref64|
+              of the float64 plain version, and at the full-width fp32
+              shapes: an fp32 training step's and an fp32 clip's);
               the packed kernel in its long-key regime and the dual
               cross-attention kernel under their own names; the backward
               kernels' dq, dk and dv each; the conv kernel as the direct
@@ -58,9 +59,10 @@ Phases, each printing its own lines and raising on failure:
               losses, gradients at a spatial and a temporal attention
               projection, launch counts against the routing
   6b. train_fp32 the same under dtype_policy=fp32 (the JAX trainer's
-              precision: rows 1 and 9 on their fp32 kernels, 37 flash and
-              10 flash backward launches a step); seconds per step, peak
-              memory, losses, gradients, launches against the routing
+              precision: rows 1, 2, 9 and 10 on their fp32 kernels, 37
+              flash, 10 flash backward, 68 small and 34 small backward
+              launches a step); seconds per step, peak memory, losses,
+              gradients, launches against the routing
   7. world    the full-width PandoraConfig() WorldModel in bf16 (32-layer
               LLaMA, 24-layer CLIP tower, 12-layer Q-Former, the diffusion
               stack) through pipeline.chat_wm.ChatWM at 576x1024, two
@@ -279,7 +281,7 @@ def cuda_ms(fn, *, warmup: int = 2, iters: int = 5) -> float:
 # accurate to fp32 can run there and so pass the CUDA cores' 67 TFLOP/s
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
-# the fp32 cases of rows 1 and 9, beside the rule of _kernel_bound:
+# the fp32 cases of rows 1, 2, 9 and 10, beside the rule of _kernel_bound:
 # max|kernel - ref64| within REF64_FACTOR max|ref32 - ref64| (ref64: the
 # plain version in float64 on the same inputs). One TF32 pass meets the
 # 1%-of-the-mean rule; it misses this one by orders of magnitude
@@ -417,7 +419,8 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
                      flash: bool, device, gen) -> None:
     """Hold an attention kernel on (B, N, H, D) operands to the bound rule
     at each (B, N, M, H, D, dtype[, causal]) case; the flash kernel's LSE
-    within 1e-3 too. SDPA on the same operands is the library time."""
+    within 1e-3 too, and every fp32 case to the ref64 rule. SDPA on the
+    same operands is the library time."""
     for case in cases:
         B, N, M, H, D, dt = case[:6]
         causal = case[6] if flash else False
@@ -438,13 +441,14 @@ def _check_attention(summary: dict, name: str, kern, plain, cases,
         if flash:  # (o, lse); the LSE is fp32 on both sides
             (out, lse), (ref32, lse32), ref_dt = out, ref32, ref_dt[0]
             extra["lse_max_abs_err"] = (lse - lse32).abs().max().item()
-            if dt == torch.float32:
-                ref64 = _by_batch(functools.partial(plain, **kw),
-                                  _ref64_chunk(H, N, M))(
-                    q.double(), k.double(), v.double())[0]
-                (extra["ref64_max_abs_err"],
-                 extra["ref64_bound"]) = _ref64_bound(out, ref32, ref64)
-                del ref64
+        if dt == torch.float32:
+            ref64 = _by_batch(functools.partial(plain, **kw),
+                              _ref64_chunk(H, N, M))(
+                q.double(), k.double(), v.double())
+            ref64 = ref64[0] if flash else ref64
+            (extra["ref64_max_abs_err"],
+             extra["ref64_bound"]) = _ref64_bound(out, ref32, ref64)
+            del ref64
         err, bound = _kernel_bound(out, ref_dt, ref32)
         del ref32, ref_dt
         mask = _sdpa_mask(N, M, causal, device)
@@ -530,7 +534,8 @@ def check_flash(summary: dict, device, gen, dtypes=None) -> None:
                      flash_attention_plain, cases, True, device, gen)
 
 
-def check_small(summary: dict, device, gen) -> None:
+def check_small(summary: dict, device, gen, dtypes=None) -> None:
+    """Row 2 at every case, or only at those whose dtype is in `dtypes`."""
     from open_pandora_tpu_torch.ops.small_attention import (
         small_attention, small_attention_plain)
 
@@ -545,6 +550,26 @@ def check_small(summary: dict, device, gen) -> None:
         (5120, 16, 16, 2, 32, f32),    # narrow model (phase 4)
         (5120, 16, 16, 8, 32, f32),
         (100, 7, 16, 3, 48, f32),      # ragged N < M
+        # fp32 at full width: the temporal sites of a training step under
+        # dtype_policy=fp32 (phase 6b; batch 1: 40x64, 20x32, 10x16, 5x8
+        # and init_attn), then of an fp32 clip's CFG eval (batch 2)
+        (2560, 16, 16, 5, 64, f32),
+        (640, 16, 16, 10, 64, f32),
+        (160, 16, 16, 20, 64, f32),
+        (40, 16, 16, 20, 64, f32),
+        (2560, 16, 16, 8, 64, f32),
+        (5120, 16, 16, 5, 64, f32),
+        (1280, 16, 16, 10, 64, f32),
+        (320, 16, 16, 20, 64, f32),
+        (80, 16, 16, 20, 64, f32),
+        (5120, 16, 16, 8, 64, f32),
+        # the fp32 kernel's edges: D = 36 (a k8 tail of 4), D = 72 (the
+        # D <= 128 instance), q, k, v as strided views of one packed
+        # projection, q 4 bytes off 16-byte alignment (4-byte copies)
+        (300, 16, 16, 4, 36, f32),
+        (300, 16, 16, 4, 72, f32),
+        (320, 16, 16, 20, 64, f32, "packed"),
+        (320, 16, 16, 20, 64, f32, "offset1"),
         (1152, 16, 16, 20, 64, bf16),  # 1280-channel temporal at 576x1024
         (288, 16, 16, 20, 64, bf16),
         (5120, 16, 16, 4, 80, bf16),   # temporal sites at head width 80 (5b)
@@ -565,6 +590,7 @@ def check_small(summary: dict, device, gen) -> None:
         (2304, 16, 16, 10, 64, bf16),
         (576, 16, 16, 20, 64, bf16),
     ]
+    cases = [c for c in cases if dtypes is None or c[5] in dtypes]
     _check_attention(summary, "small_attn_fwd", small_attention,
                      small_attention_plain, cases, False, device, gen)
 
@@ -572,8 +598,8 @@ def check_small(summary: dict, device, gen) -> None:
 def check_attention_bwd(summary: dict, device, gen, dtypes=None) -> None:
     """The flash and small-attention backward kernels against their plain
     versions on the same q, k, v, do (and the forward's o and LSE): dq, dk
-    and dv each held to the bound rule (the fp32 flash cases to the ref64
-    rule too). The library yardstick is SDPA's forward and backward
+    and dv each held to the bound rule (the fp32 cases to the ref64 rule
+    too). The library yardstick is SDPA's forward and backward
     together (one autograd call). Every case, or those whose dtype is in
     `dtypes`."""
     from open_pandora_tpu_torch.ops.flash_attention import (
@@ -606,7 +632,9 @@ def check_attention_bwd(summary: dict, device, gen, dtypes=None) -> None:
     # 20x32, 10x16, 5x8 and init_attn; at 576x1024, 72x128, 36x64 and
     # 18x32; ragged N = M = 7 and N < M, the k16 tail (D = 72), q, k, v as
     # strided views of one packed projection; D = 36 and a q off 16-byte
-    # alignment (the scalar kernel); the narrow model's in fp32
+    # alignment (the scalar kernel); the narrow model's in fp32, the five
+    # batch-1 sites in fp32 (phase 6b), and the fp32 kernel's edges (N = M
+    # = 7, N < M, D = 36 and 72, q 4 bytes off 16-byte alignment)
     small_cases = [
         (2560, 16, 16, 5, 64, bf16),
         (640, 16, 16, 10, 64, bf16),
@@ -624,6 +652,16 @@ def check_attention_bwd(summary: dict, device, gen, dtypes=None) -> None:
         (2560, 16, 16, 5, 64, bf16, "offset"),
         (2560, 16, 16, 2, 32, f32),
         (2560, 16, 16, 8, 32, f32),
+        (2560, 16, 16, 5, 64, f32),
+        (640, 16, 16, 10, 64, f32),
+        (160, 16, 16, 20, 64, f32),
+        (40, 16, 16, 20, 64, f32),
+        (2560, 16, 16, 8, 64, f32),
+        (300, 7, 7, 3, 48, f32),
+        (100, 7, 16, 3, 48, f32),
+        (300, 16, 16, 4, 36, f32),
+        (300, 16, 16, 4, 72, f32),
+        (2560, 16, 16, 5, 64, f32, "offset1"),
     ]
     if dtypes is not None:
         flash_cases = [c for c in flash_cases if c[5] in dtypes]
@@ -712,7 +750,9 @@ def check_attention_bwd(summary: dict, device, gen, dtypes=None) -> None:
              lambda: small_attention_bwd_plain(*[t.float() for t in args]),
              sdpa_fwd_bwd(q, k, v, do, None),
              ((3 * N + 4 * M) * B * H * D * q.element_size(),
-              10 * B * H * N * M * D, dt))
+              10 * B * H * N * M * D, dt),
+             (lambda: small_attention_bwd_plain(
+                 *[t.double() for t in args])) if dt == f32 else None)
         del q, k, v, do, args
 
 
@@ -3938,10 +3978,11 @@ def main(argv=None) -> int:
     p.add_argument("--multi-worker", nargs=2, metavar=("OUT", "PROMPT"),
                    help=argparse.SUPPRESS)
     p.add_argument("--fp32-only", action="store_true",
-                   help="phases 1-2, phase 3's fp32 attention cases and "
-                   "phase 6b, then stop without a result line (from a tree "
-                   "whose csrc/ is another commit's, this times that "
-                   "commit's kernels by this script's cases and rules)")
+                   help="phases 1-2, phase 3's fp32 attention cases (rows "
+                   "1, 2, 9, 10) and phase 6b, then stop without a result "
+                   "line (from a tree whose csrc/ is another commit's, this "
+                   "times that commit's kernels by this script's cases and "
+                   "rules)")
     args = p.parse_args(argv)
     if args.multi_worker:
         return multi_worker(*args.multi_worker, args.seed)
@@ -3976,6 +4017,7 @@ def main(argv=None) -> int:
     if args.fp32_only:
         summary = {}
         check_flash(summary, device, gen, dtypes=(torch.float32,))
+        check_small(summary, device, gen, dtypes=(torch.float32,))
         check_attention_bwd(summary, device, gen, dtypes=(torch.float32,))
         run_train(device, args.seed, fp32=True)
         log("run", f"wall {time.perf_counter() - t_run:.1f} s (fp32 only)")

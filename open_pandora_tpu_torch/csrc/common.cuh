@@ -5,8 +5,8 @@
 // sum the dual cross-attention kernel shares; `tc_softmax` also runs the
 // fp32 flash tiles), the cp.async, ldmatrix, mma.sync and wgmma wrappers of
 // the tensor-core kernels, and the split-TF32 fragments of the fp32 flash
-// kernels; the warp-owned tiles of the small-attention kernels; mbarrier
-// and TMA helpers.
+// and small-attention kernels; the warp-owned tiles of the small-attention
+// kernels (bf16 and fp32); mbarrier and TMA helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -724,6 +724,8 @@ __device__ __forceinline__ void tc_softmax(float (&s)[NT][4],
 }
 
 // -- split-TF32 tiles of the fp32 flash kernels (flash_fwd.cu, flash_bwd.cu)
+//    and of the fp32 small-attention kernels (small_attn_fwd.cu,
+//    small_attn_bwd.cu: the warp-owned fp32 tiles further below)
 //
 // An fp32 product runs on the tensor cores as three TF32 products
 // (CUTLASS's 3xTF32): each operand x = hi + lo with hi = x rounded to TF32
@@ -741,7 +743,8 @@ __device__ __forceinline__ void tc_softmax(float (&s)[NT][4],
 // whose A is an accumulator (p v, p^T do, ds k, ...) reads the k slots in
 // another order: slot t is column 2t and slot t + 4 column 2t + 1, so A
 // comes from the accumulator without shuffles (`acc_a`) and B's rows are
-// taken in the same order (`ldb_kmajor`).
+// taken in the same order (`ldb_kmajor`); an A staged in shared memory is
+// read in that order too (`lda_pairs`, `lda_trans_pairs`).
 
 // x = hi + lo, each a TF32 operand. Rounding to nearest with ties away is
 // adding half a TF32 ulp (0x1000) to the bit pattern and dropping the low
@@ -792,6 +795,39 @@ __device__ __forceinline__ FragA lda_rows(const float* p, int ld) {
   split_tf32(p[(g + 8) * ld + t], a.hi[1], a.lo[1]);
   split_tf32(p[g * ld + t + 4], a.hi[2], a.lo[2]);
   split_tf32(p[(g + 8) * ld + t + 4], a.hi[3], a.lo[3]);
+  return a;
+}
+
+// A fragment in the k-slot order of `acc_a` from a row-major fp32 tile
+// whose rows are the m index: slots t and t + 4 are columns 2t and 2t + 1
+// of rows g and g + 8, one float2 load a row (conflict-free at a pitch of
+// 8 mod 16 floats).
+__device__ __forceinline__ FragA lda_pairs(const float* p, int ld) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const float2 x0 = *reinterpret_cast<const float2*>(p + g * ld + 2 * t);
+  const float2 x1 =
+      *reinterpret_cast<const float2*>(p + (g + 8) * ld + 2 * t);
+  FragA a;
+  split_tf32(x0.x, a.hi[0], a.lo[0]);
+  split_tf32(x1.x, a.hi[1], a.lo[1]);
+  split_tf32(x0.y, a.hi[2], a.lo[2]);
+  split_tf32(x1.y, a.hi[3], a.lo[3]);
+  return a;
+}
+
+// The same fragment of X^T, X a row-major fp32 tile whose rows are the k
+// index: A[m][slot t] = X[2t][m], A[m][slot t + 4] = X[2t + 1][m].
+__device__ __forceinline__ FragA lda_trans_pairs(const float* p, int ld) {
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const float* r0 = p + 2 * t * ld + g;
+  const float* r1 = r0 + ld;
+  FragA a;
+  split_tf32(r0[0], a.hi[0], a.lo[0]);
+  split_tf32(r0[8], a.hi[1], a.lo[1]);
+  split_tf32(r1[0], a.hi[2], a.lo[2]);
+  split_tf32(r1[8], a.hi[3], a.lo[3]);
   return a;
 }
 
@@ -1398,6 +1434,188 @@ __device__ __forceinline__ void warp_stage(__nv_bfloat16* dst,
   }
 }
 
+// -- warp-owned fp32 tiles of tiny sequences (small_attn_fwd.cu,
+//    small_attn_bwd.cu): one warp holds whole (rows, D) fp32 operands of
+//    one (b, h) pair (rows <= 32, padded to a multiple of 16) in its own
+//    shared memory at a pitch of f32_tile_ld(D) floats, and runs every
+//    product as split TF32 (the fragments above).
+
+// 8 ceil(D / 8) columns (whole k8 steps) and 4 more: a pitch of 4 mod 8
+// floats keeps lda_rows, ldb_nmajor and ldb_kmajor free of bank conflicts.
+__host__ __device__ constexpr int f32_tile_ld(int D) {
+  return (D + 7) / 8 * 8 + 4;
+}
+
+// Copy `rows` rows of D fp32 values to dst at pitch ld through cp.async,
+// the lanes on consecutive pieces: 16-byte pieces where `vec` (D % 4 == 0
+// and 16-byte aligned rows), else 4-byte ones. Rows at or past `valid` and
+// the columns [D, 8 ceil(D / 8)) of the k8 tail are zero-filled by the
+// copy itself (source size 0): a stale value could be a NaN, and 0 * NaN
+// is NaN. The caller commits and waits.
+__device__ __forceinline__ void warp_load_rows_f32(
+    float* dst, int ld, const float* src, long long row_stride, int valid,
+    int rows, int D, bool vec, int lane) {
+  const int D8 = (D + 7) & ~7;
+  if (vec) {
+    const int pieces = D8 / 4;  // <= 32
+    const int dr = 32 / pieces, dc = 32 - dr * pieces;
+    for (int r = lane / pieces, c = lane - r * pieces; r < rows;) {
+      const int col = 4 * c;
+      const bool ok = r < valid && col < D;
+      cp_async16(dst + r * ld + col, src + (ok ? r * row_stride + col : 0),
+                 ok);
+      r += dr;
+      c += dc;
+      if (c >= pieces) {
+        c -= pieces;
+        ++r;
+      }
+    }
+  } else {
+    for (int r = 0; r < rows; ++r)
+      for (int c = lane; c < D8; c += 32) {
+        const bool ok = r < valid && c < D;
+        cp_async4(dst + r * ld + c, src + (ok ? r * row_stride + c : 0), ok);
+      }
+  }
+}
+
+// Write rows [0, valid) of D fp32 values from src (pitch ld) to dst (row
+// stride row_stride elements): 16-byte pieces where `vec` (D % 4 == 0,
+// dst and the row stride 16-byte aligned), else 4-byte ones.
+__device__ __forceinline__ void warp_store_rows_f32(
+    float* dst, long long row_stride, const float* src, int ld, int valid,
+    int D, bool vec, int lane) {
+  if (vec) {
+    const int pieces = D / 4;  // <= 32
+    const int dr = 32 / pieces, dc = 32 - dr * pieces;
+    for (int r = lane / pieces, c = lane - r * pieces; r < valid;) {
+      *reinterpret_cast<float4*>(dst + r * row_stride + 4 * c) =
+          *reinterpret_cast<const float4*>(src + r * ld + 4 * c);
+      r += dr;
+      c += dc;
+      if (c >= pieces) {
+        c -= pieces;
+        ++r;
+      }
+    }
+  } else {
+    for (int r = 0; r < valid; ++r)
+      for (int c = lane; c < D; c += 32)
+        dst[r * row_stride + c] = src[r * ld + c];
+  }
+}
+
+// The three split products of a b in two chains: big += a.hi b.hi, small
+// += a.lo b.hi + a.hi b.lo. The tensor core truncates its sum at every
+// mma.sync, so the big term, chained alone, is truncated once a k8 step
+// instead of three times, and the small terms' truncations are about
+// 2^-11 of its; the chains meet on the CUDA cores.
+__device__ __forceinline__ void mma_3xtf32_two(float (&big)[4],
+                                               float (&small)[4],
+                                               const FragA& a,
+                                               const FragB& b) {
+  mma_tf32(small, a.lo, b.hi);
+  mma_tf32(small, a.hi, b.lo);
+  mma_tf32(big, a.hi, b.hi);
+}
+
+// s = A B^T over the head dim in split TF32 for the warp's 16 rows of A
+// at `a` against the nk <= 32 rows (a multiple of 8) of B at `b`, both at
+// pitch ld: s[j] holds keys 8 j.. of rows g and g + 8 (as `warp_scores`),
+// key tiles at or past nk stay 0. The chains start afresh every 64 values
+// of D (DT = DMAX / 8 k8 steps at most; those past D skipped).
+template <int DT>
+__device__ __forceinline__ void warp_scores_f32(float (&s)[4][4],
+                                                const float* a,
+                                                const float* b, int ld,
+                                                int nk, int D) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int c0 = 0; c0 < DT; c0 += 8) {
+    if (c0 * 8 >= D) break;
+    float big[4][4] = {}, small[4][4] = {};
+#pragma unroll
+    for (int kc = c0; kc < c0 + 8 && kc < DT; ++kc) {
+      if (kc * 8 >= D) break;
+      const FragA fa = lda_rows(a + kc * 8, ld);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j * 8 >= nk) break;
+        mma_3xtf32_two(big[j], small[j], fa,
+                       ldb_nmajor(b + j * 8 * ld + kc * 8, ld));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += big[j][e] + small[j][e];
+  }
+}
+
+// The warp's 16 rows of A X in split TF32, staged in fp32 into a tile at
+// dst (pitch ldd): A's k8 fragment kc from afrag(kc) (its k slots in the
+// order of `acc_a`), X's k rows from x (pitch ldx) by `ldb_kmajor`, over
+// the k8 steps [0, nk / 8), nk <= 32; the output's n8 tiles past D
+// skipped, eight at a time (DT = DMAX / 8 at most). The caller makes sure
+// no lane still reads dst.
+template <int DT, class AFrag>
+__device__ __forceinline__ void warp_product_f32(float* dst, int ldd,
+                                                 AFrag afrag, const float* x,
+                                                 int ldx, int nk, int D) {
+  constexpr int JB = DT < 8 ? DT : 8;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j0 = 0; j0 < DT; j0 += JB) {
+    if (j0 * 8 >= D) break;
+    float big[JB][4] = {}, small[JB][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      if (kc * 8 >= nk) break;
+      const FragA fa = afrag(kc);
+#pragma unroll
+      for (int j = 0; j < JB; ++j) {
+        if ((j0 + j) * 8 >= D) break;
+        mma_3xtf32_two(big[j], small[j], fa,
+                       ldb_kmajor(x + kc * 8 * ldx + (j0 + j) * 8, ldx));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < JB; ++j) {
+      if ((j0 + j) * 8 >= D) break;
+      const int c = 8 * (j0 + j) + 2 * t;
+      *reinterpret_cast<float2*>(dst + g * ldd + c) =
+          make_float2(big[j][0] + small[j][0], big[j][1] + small[j][1]);
+      *reinterpret_cast<float2*>(dst + (g + 8) * ldd + c) =
+          make_float2(big[j][2] + small[j][2], big[j][3] + small[j][3]);
+    }
+  }
+}
+
+// Warps a block of the warp-owned tiles, per_warp bytes of shared memory
+// each: the count up to max_warps that keeps the most warps resident on an
+// SM (228 KB, 1 KB of it reserved a block; at most 32 blocks and 64
+// warps), the larger block on a tie; 0 if one warp needs more than a
+// block's 227 KB.
+inline int warps_per_block(size_t per_warp, int max_warps) {
+  constexpr size_t kBlockBytes = 227 * 1024, kSmBytes = 228 * 1024;
+  int best = 0, best_resident = 0;
+  for (int w = 1; w <= max_warps; ++w) {
+    const size_t bytes = w * per_warp;
+    if (bytes > kBlockBytes) break;
+    const size_t fit = kSmBytes / (bytes + 1024);
+    const int blocks = static_cast<int>(fit < 32 ? fit : 32);
+    const int resident = w * blocks < 64 ? w * blocks : 64;
+    if (resident >= best_resident) {
+      best = w;
+      best_resident = resident;
+    }
+  }
+  return best;
+}
+
 // Cards a process may drive (per-card state of the launchers).
 constexpr int kMaxDevices = 16;
 
@@ -1408,6 +1626,27 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Opt kKernel into a block's whole 227 KB of dynamic shared memory, once
+// per card, so that no launch pays for the attribute call: where a
+// launch's own host work is most of its time (tiny attention calls), one
+// on every launch shows.
+template <auto kKernel>
+cudaError_t allow_smem_once() {
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidValue;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kKernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               227 * 1024);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace pandora

@@ -880,22 +880,11 @@ cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
   if (t.stages > kTcMaxStages) t.stages = kTcMaxStages;
   if (t.stages < kTcMinStages) return cudaErrorInvalidValue;
   const size_t smem = tc_smem_bytes(R, a.c, t.stages);
-  auto kernel = fused_temporal_tc_kernel<RG, NB>;
-  // once per instance and card: the most shared memory any launch asks
-  static bool ready[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev >= kMaxDevices) return cudaErrorInvalidValue;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemLimit));
-    if (err != cudaSuccess) return err;
-    ready[dev] = true;
-  }
+  cudaError_t err = allow_smem_once<&fused_temporal_tc_kernel<RG, NB>>();
+  if (err != cudaSuccess) return err;
   const int per = R / kTcT;
-  kernel<<<(a.positions + per - 1) / per, kTcThreads, smem, stream>>>(maps,
-                                                                    t);
+  fused_temporal_tc_kernel<RG, NB>
+      <<<(a.positions + per - 1) / per, kTcThreads, smem, stream>>>(maps, t);
   return cudaGetLastError();
 }
 

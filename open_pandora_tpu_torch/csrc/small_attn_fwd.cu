@@ -14,8 +14,9 @@
 // batch fills its 128-lane vregs; here one warp owns one (b, h) pair.
 //
 // What bounds it on the card: reading q, k, v and writing o once. The
-// arithmetic, 4 N M D per pair, is about 1% of the memory time even on the
-// CUDA cores. So the design is about bytes in flight and instructions per
+// arithmetic, 4 N M D per pair, takes a tenth of the memory time or less
+// on the tensor cores (bf16; fp32 as split TF32, at a third of the TF32
+// rate). So the design is about bytes in flight and instructions per
 // byte:
 // - bf16, D % 8 == 0, 16-byte aligned rows (`small_attn_fwd_tc_kernel`,
 //   the main path): the warp copies its q, k and v with 16-byte cp.async
@@ -30,10 +31,30 @@
 //   straight from those fragments as two bf16 A operands, hi = bf16(p) and
 //   lo = bf16(p - hi), v as B through `ldmatrix.trans`. o is staged as
 //   bf16 in the rows of q it replaces and leaves in 16-byte pieces.
-// - everything else (fp32, the narrow model; bf16 with D % 8 != 0 or rows
-//   off 16-byte alignment) takes `small_attn_fwd_kernel`, chosen by shape in
-//   the launcher: fp32 shared memory at an odd pitch, lane n computes score
-//   row n and its softmax, the lanes run across D for the product with v.
+// - fp32, every shape (`small_attn_fwd_f32_kernel`: the fp32 training
+//   step, an fp32 clip, the narrow model): the same warp-owned structure in
+//   split TF32 (common.cuh). q, k and v go to fp32 shared memory by
+//   cp.async, 16-byte pieces where D % 4 == 0 and every pointer and stride
+//   gives 16-byte rows, else 4-byte ones (rows past N or M and the k8 tail
+//   past D zero-filled by the copy), at a pitch of 8 ceil(D / 8) + 4
+//   floats, so every fragment load is free of bank conflicts: about 13 KB
+//   per warp at N = M = 16 and D = 64, the warps a block chosen by that
+//   size (`warps_per_block`). Per 16 query rows, S = q k^T is three TF32
+//   mma.sync m16n8k8 products of split operands (hi = x rounded to TF32,
+//   lo = x - hi rounded), accumulated in fp32: the big term hi hi in a
+//   chain of its own, the two small terms in another, each chain over at
+//   most 64 values of D, the chains added on the CUDA cores (the tensor
+//   core truncates its sum at every mma.sync, so fewer truncations in the
+//   big chain keep o within 8 times the fp32 plain version's distance from
+//   float64); the bf16 kernel's softmax on the fragments;
+//   p stays fp32 and enters o = p v from the accumulator fragments
+//   (`acc_a`, v's rows read in the same k-slot order), split like any
+//   operand. o is staged in fp32 in the rows of q it replaces and leaves
+//   in 16-byte pieces where aligned.
+// - bf16 with D % 8 != 0 or rows off 16-byte alignment
+//   (`small_attn_fwd_kernel`, chosen by shape in the launcher): fp32
+//   shared memory at an odd pitch, lane n computes score row n and its
+//   softmax, the lanes run across D for the product with v.
 #include "common.cuh"
 
 namespace pandora {
@@ -44,10 +65,9 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kMaxSeq = 32;
 
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-small_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int BH,
+small_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, int BH,
                       int H, int N, int M, int D, long long qsb,
                       long long qsn, long long qsh, long long ksb,
                       long long ksn, long long ksh, long long vsb,
@@ -69,16 +89,16 @@ small_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H;
   const int h = bh - b * H;
 
-  const T* qp = q + b * qsb + h * qsh;
-  const T* kp = k + b * ksb + h * ksh;
-  const T* vp = v + b * vsb + h * vsh;
+  const bf16* qp = q + b * qsb + h * qsh;
+  const bf16* kp = k + b * ksb + h * ksh;
+  const bf16* vp = v + b * vsb + h * vsh;
   for (int n = 0; n < N; ++n)
     for (int d = lane; d < D; d += 32)
-      sQ[n * ld + d] = Elem<T>::to_float(qp[n * qsn + d]);
+      sQ[n * ld + d] = Elem<bf16>::to_float(qp[n * qsn + d]);
   for (int m = 0; m < M; ++m)
     for (int d = lane; d < D; d += 32) {
-      sK[m * ld + d] = Elem<T>::to_float(kp[m * ksn + d]);
-      sV[m * ld + d] = Elem<T>::to_float(vp[m * vsn + d]);
+      sK[m * ld + d] = Elem<bf16>::to_float(kp[m * ksn + d]);
+      sV[m * ld + d] = Elem<bf16>::to_float(vp[m * vsn + d]);
     }
   __syncwarp();
 
@@ -111,13 +131,13 @@ small_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncwarp();
 
   // o[n, d] = sum_j p[n, j] v[j, d], lanes across d
-  T* op = o + (static_cast<long long>(b) * N * H + h) * D;
+  bf16* op = o + (static_cast<long long>(b) * N * H + h) * D;
   const long long osn = static_cast<long long>(H) * D;
   for (int n = 0; n < N; ++n)
     for (int d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < M; ++j) acc = fmaf(sP[n * ldp + j], sV[j * ld + d], acc);
-      op[n * osn + d] = Elem<T>::from_float(acc);
+      op[n * osn + d] = Elem<bf16>::from_float(acc);
     }
 }
 
@@ -187,25 +207,98 @@ small_attn_fwd_tc_kernel(const bf16* __restrict__ q,
                     static_cast<long long>(H) * D, sQ, LD, N, D, lane);
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int N, int M, int H, int D, const long long* st,
-                   float scale, cudaStream_t stream) {
+// fp32, D <= DMAX (32, 64 or 128; arrays sized by DMAX, loops cut at D):
+// one warp per (b, h) pair, split TF32. vec_in: q, k and v rows 16-byte
+// aligned and D % 4 == 0; vec_out: the same of o.
+template <int DMAX>
+__global__ void __launch_bounds__(kWarps * 32)
+small_attn_fwd_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          int BH, int H, int N, int M, int D, long long qsb,
+                          long long qsn, long long qsh, long long ksb,
+                          long long ksn, long long ksh, long long vsb,
+                          long long vsn, long long vsh, float scale_log2,
+                          bool vec_in, bool vec_out) {
+  constexpr int DT = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int NP = (N + 15) & ~15, MP = (M + 15) & ~15;
+  const int LD = f32_tile_ld(D);
+  float* sQ = reinterpret_cast<float*>(f32_smem) + warp * (NP + 2 * MP) * LD;
+  float* sK = sQ + NP * LD;
+  float* sV = sK + MP * LD;
+
+  const int bh = blockIdx.x * (blockDim.x / 32) + warp;
+  if (bh >= BH) return;  // warps only synchronise among their own lanes
+  const int b = bh / H;
+  const int h = bh - b * H;
+  warp_load_rows_f32(sQ, LD, q + b * qsb + h * qsh, qsn, N, NP, D, vec_in,
+                     lane);
+  warp_load_rows_f32(sK, LD, k + b * ksb + h * ksh, ksn, M, MP, D, vec_in,
+                     lane);
+  warp_load_rows_f32(sV, LD, v + b * vsb + h * vsh, vsn, M, MP, D, vec_in,
+                     lane);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  for (int r0 = 0; r0 < NP; r0 += 16) {
+    float p[4][4];
+    warp_scores_f32<DT>(p, sQ + r0 * LD, sK, LD, MP, D);
+    warp_softmax(p, M, scale_log2, lane);
+    __syncwarp();  // o replaces the rows of q this tile has read
+    // o = p v: the p fragments of key tile kc are the A fragment of k8
+    // step kc
+    warp_product_f32<DT>(sQ + r0 * LD, LD,
+                         [&](int kc) { return acc_a(p[kc]); }, sV, LD, MP,
+                         D);
+  }
+  __syncwarp();
+  warp_store_rows_f32(o + (static_cast<long long>(b) * N * H + h) * D,
+                      static_cast<long long>(H) * D, sQ, LD, N, D, vec_out,
+                      lane);
+}
+
+cudaError_t launch_scalar(const void* q, const void* k, const void* v,
+                          void* o, int B, int N, int M, int H, int D,
+                          const long long* st, float scale,
+                          cudaStream_t stream) {
   const int BH = B * H;
   const size_t smem = static_cast<size_t>(kWarps) *
                       ((N + 2 * M) * (D + 1) + N * (M + 1)) * sizeof(float);
-  auto kernel = small_attn_fwd_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  auto kernel = small_attn_fwd_kernel;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const int blocks = (BH + kWarps - 1) / kWarps;
   kernel<<<blocks, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), BH, H, N, M, D, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), BH, H, N, M, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int N, int M, int H, int D, const long long* st,
+                       float scale, bool vec_in, bool vec_out,
+                       cudaStream_t stream) {
+  const int BH = B * H;
+  const int NP = (N + 15) / 16 * 16, MP = (M + 15) / 16 * 16;
+  const size_t per_warp =
+      static_cast<size_t>(NP + 2 * MP) * f32_tile_ld(D) * sizeof(float);
+  const int warps = warps_per_block(per_warp, kWarps);
+  if (warps < 1) return cudaErrorInvalidValue;
+  const size_t smem = warps * per_warp;
+  cudaError_t err = allow_smem_once<&small_attn_fwd_f32_kernel<DMAX>>();
+  if (err != cudaSuccess) return err;
+  const int blocks = (BH + warps - 1) / warps;
+  small_attn_fwd_f32_kernel<DMAX><<<blocks, warps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), BH, H, N, M, D,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale * 1.4426950408889634f, vec_in, vec_out);
   return cudaGetLastError();
 }
 
@@ -231,8 +324,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 }  // namespace pandora
 
 // C interface; strides in elements as in pandora_flash_fwd. N, M <= 32 and
-// D <= 128, else cudaErrorInvalidValue. bf16 with D % 8 == 0 and 16-byte
-// aligned rows runs the tensor-core kernel, any other shape the scalar one.
+// D <= 128, else cudaErrorInvalidValue. fp32 runs the split-TF32 kernel at
+// every shape; bf16 with D % 8 == 0 and 16-byte aligned rows the
+// tensor-core kernel, any other bf16 shape the scalar one.
 extern "C" int pandora_small_attn_fwd(const void* q, const void* k,
                                       const void* v, void* o, int B, int N,
                                       int M, int H, int D, long long q_sb,
@@ -269,9 +363,19 @@ extern "C" int pandora_small_attn_fwd(const void* q, const void* k,
         err = cudaErrorInvalidValue;
     }
   } else if (dtype == kFloat32) {
-    err = launch<float>(q, k, v, o, B, N, M, H, D, st, scale, s);
+    const void* const in[3] = {q, k, v};
+    const void* const out[1] = {o};
+    const long long none[1] = {0};
+    const bool vec_in = D % 4 == 0 && rows_aligned16(in, st, 4);
+    const bool vec_out = D % 4 == 0 && rows_aligned16(out, none, 4);
+    err = D <= 32   ? launch_f32<32>(q, k, v, o, B, N, M, H, D, st, scale,
+                                     vec_in, vec_out, s)
+          : D <= 64 ? launch_f32<64>(q, k, v, o, B, N, M, H, D, st, scale,
+                                     vec_in, vec_out, s)
+                    : launch_f32<128>(q, k, v, o, B, N, M, H, D, st, scale,
+                                      vec_in, vec_out, s);
   } else if (dtype == kBFloat16) {
-    err = launch<__nv_bfloat16>(q, k, v, o, B, N, M, H, D, st, scale, s);
+    err = launch_scalar(q, k, v, o, B, N, M, H, D, st, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -81,9 +81,9 @@ KERNEL_CLASSES = (
                    "flash_fwd_tc_kernel", "flash_fwd_wide_kernel")),
     ("flash_bwd", ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel",
                    "flash_bwd_dkv_tc_kernel", "flash_bwd_dq_tc_kernel")),
-    ("small_attn_fwd", ("small_attn_fwd_kernel",
+    ("small_attn_fwd", ("small_attn_fwd_f32_kernel", "small_attn_fwd_kernel",
                         "small_attn_fwd_tc_kernel")),
-    ("small_attn_bwd", ("small_attn_bwd_kernel",
+    ("small_attn_bwd", ("small_attn_bwd_f32_kernel", "small_attn_bwd_kernel",
                         "small_attn_bwd_tc_kernel")),
     ("packed_attn_fwd", ("packed_attn_kernel",)),   # both regimes
     ("dual_cross_attn", ("dual_cross_tc_kernel",)),

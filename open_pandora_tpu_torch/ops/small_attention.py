@@ -1,9 +1,10 @@
 """Attention for tiny sequences over a huge batch, forward and backward:
 the CUDA kernels (csrc/small_attn_fwd.cu, csrc/small_attn_bwd.cu), their
 plain PyTorch versions, and the autograd Function that picks between them
-by device. The C launchers pick the kernel by shape: bf16 with D % 8 == 0
-and 16-byte aligned rows runs the tensor-core kernels, any other shape
-(fp32, odd head widths, unaligned views) the scalar ones.
+by device. The C launchers pick the kernel by dtype and shape: fp32 runs
+the split-TF32 tensor-core kernels at every shape; bf16 with D % 8 == 0
+and 16-byte aligned rows the bf16 tensor-core kernels, any other bf16
+shape (odd head widths, unaligned views) the scalar ones.
 
 Counterpart of open_pandora_tpu/ops/small_attention.py (Pallas
 `_fwd_kernel`, and the custom VJP's `_bwd_kernel`). Serves the UNet's
@@ -17,6 +18,7 @@ from typing import Optional
 import torch
 
 from open_pandora_tpu_torch.ops import kernels
+from open_pandora_tpu_torch.ops.flash_attention import _up
 
 LANES = 128
 MAX_SEQ = 32
@@ -32,11 +34,12 @@ def small_attention_eligible(n: int, m: int, batch_heads: int) -> bool:
 def small_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, sm_scale: Optional[float] = None
                           ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: every step in fp32."""
+    """The kernel's function in plain PyTorch: every step in fp32 (float64
+    for float64 inputs: the card's float64 reference)."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    s = torch.einsum("bnhd,bmhd->bhnm", _up(q), _up(k)) * scale
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhnm,bmhd->bnhd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", p, _up(v)).to(q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -51,17 +54,18 @@ def small_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, do: torch.Tensor, *,
                               sm_scale: Optional[float] = None):
     """The backward kernel's function in plain PyTorch (`_bwd_kernel`),
-    every step in fp32: p recomputed, dv = p^T do, dp = do v^T,
-    ds = p (dp - rowsum(dp p)) scale, dq = ds k, dk = ds^T q."""
+    every step in fp32 (float64 for float64 inputs): p recomputed,
+    dv = p^T do, dp = do v^T, ds = p (dp - rowsum(dp p)) scale, dq = ds k,
+    dk = ds^T q."""
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    s = torch.einsum("bnhd,bmhd->bhnm", _up(q), _up(k)) * scale
     p = torch.softmax(s, dim=-1)
-    dof = do.float()
+    dof = _up(do)
     dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
-    dp = torch.einsum("bnhd,bmhd->bhnm", dof, v.float())
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, _up(v))
     ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
-    dq = torch.einsum("bhnm,bmhd->bnhd", ds, k.float())
-    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q.float())
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, _up(k))
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, _up(q))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
