@@ -11,15 +11,19 @@ Phases, each printing its own lines and raising on failure:
   3. kernels  each CUDA kernel against its plain PyTorch version at every
               shape of the slices' main paths (320x512 and 576x1024), plus
               ragged cases (and fp32 ones for the kernels that take fp32;
-              rows 1, 2, 9 and 10 at fp32 also within 8 max|ref32 - ref64|
-              of the float64 plain version, and at the full-width fp32
-              shapes: an fp32 training step's and an fp32 clip's);
+              rows 1, 2, 9, 10, 11 and 12 at fp32 also within 8
+              max|ref32 - ref64| of the float64 plain version, and at the
+              full-width fp32 shapes: an fp32 training step's and an fp32
+              clip's);
               the packed kernel in its long-key regime and the dual
               cross-attention kernel under their own names; the backward
               kernels' dq, dk and dv each; the conv kernel as the direct
               conv (row 11) and the fused conv (row 12, with and without
               its prologue and residual) at every routed conv site of
-              both resolutions and an edge-heavy shift; the GEGLU kernel
+              both resolutions and an edge-heavy shift, in bf16 and, at
+              B = 32, in fp32 in the variants each route takes there
+              (cuDNN's fp32 conv beside it, TF32 off and, for context,
+              on: `library_tf32_ms`); the GEGLU kernel
               at the UNet's feed-forward widths; the fused temporal kernel
               and the GroupNorm kernel at every shape a trace of the UNet
               hands them at either resolution, the fused temporal lines
@@ -53,6 +57,13 @@ Phases, each printing its own lines and raising on failure:
               bf16 rule against an fp32 copy on the card, launches against
               the census; synthesize() DDIM-2 and one CFG eval at 576x1024
               under PANDORA_ENABLE_PCONV2
+  5d. conv_fp32 PandoraConfig()'s UNet in fp32 (random weights): one CFG
+              eval at 320x512 on the default route, under
+              PANDORA_ENABLE_PCONV2 and under PANDORA_ENABLE_PCONV (the 23
+              routed sites on the fp32 conv kernel, rows 3-5 not at all):
+              launches against the routing, eps within 1e-3 max|eps| of
+              the default route's, the distance from the default route
+              with TF32 allowed beside it, seconds per eval
   6. train    the full-width PandoraConfig() in bf16 through the trainer
               (train.trainer.run, stage dynamicrafter, synthetic data,
               3 steps at 320x512x16f); seconds per step, peak memory,
@@ -344,23 +355,31 @@ def _record(summary: dict, name: str, case: dict, err: float, ok: bool,
 
 
 def _check(summary: dict, name: str, case: dict, kern, plain, ref32_fn,
-           work: tuple, library=None, timed=None) -> None:
+           work: tuple, library=None, timed=None, ref64_fn=None) -> None:
     """Hold kern() to the bound against ref32_fn() (the plain version in
     fp32) with plain() (the plain version in the working dtype) setting
-    the bound; time kern, plain, the library call if there is one and any
-    other yardstick in `timed` (name -> call)."""
+    the bound, and, given ref64_fn (the plain version in float64), to the
+    ref64 rule too; time kern, plain, the library call if there is one and
+    any other yardstick in `timed` (name -> call)."""
     out = kern()
     torch.cuda.synchronize()
     ref32 = ref32_fn()
     err, bound = _kernel_bound(out, plain(), ref32)
+    extra = {}
+    if ref64_fn is not None:
+        (extra["ref64_max_abs_err"],
+         extra["ref64_bound"]) = _ref64_bound(out, ref32, ref64_fn())
     del out, ref32
     times = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain)}
     if library is not None:
         times["library_ms"] = cuda_ms(library)
     for key, fn in (timed or {}).items():
         times[key] = cuda_ms(fn)
-    ok = bool(np.isfinite(err) and err <= bound)
-    _record(summary, name, {**case, "bound": bound}, err, ok, times, work)
+    ok = bool(np.isfinite(err) and err <= bound
+              and extra.get("ref64_max_abs_err", 0.0)
+              <= extra.get("ref64_bound", 0.0))
+    _record(summary, name, {**case, "bound": bound, **extra}, err, ok,
+            times, work)
 
 
 def _heads_first(*ts):
@@ -1170,15 +1189,50 @@ def routed_conv_shapes() -> list:
     return shapes
 
 
-def check_conv(summary: dict, device, gen) -> None:
+def routed_conv_cases() -> list:
+    """(h, w, c, co, variant) of every routed conv site of PandoraConfig()'s
+    UNet at 320x512, then at 576x1024, once for each variant a route takes
+    there: "plain" (row 11, PANDORA_ENABLE_PCONV) at every site; under
+    PANDORA_ENABLE_PCONV2 (row 12) "none" at the input and Upsample convs,
+    "pro" at a ResBlock's first conv (its GroupNorm folded in) and
+    "pro_res" at its second (its skip added too)."""
+    from open_pandora_tpu_torch.core import flags
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.ops.conv2d import conv3x3_eligible
+
+    u = PandoraConfig().unet
+    cases = []
+    with flags.overridden(ENABLE_PCONV=True):
+        for hz, wz in ((40, 64), (72, 128)):
+            n_res = 0
+            for kind, *site in conv_sites(u, hz, wz):
+                variant = "none"
+                if kind == "res":           # the sites come in pairs
+                    variant = ("pro", "pro_res")[n_res % 2]
+                    n_res += 1
+                if not conv3x3_eligible(*site):
+                    continue
+                for v in ("plain", variant):
+                    if (*site, v) not in cases:
+                        cases.append((*site, v))
+    return cases
+
+
+def check_conv(summary: dict, device, gen, dtypes=None) -> None:
     """Rows 11 and 12 at every routed conv site of the product UNet at
     320x512 and 576x1024 (B = 32: a CFG pair of 16 frames), the most
-    frequent level-0 site first: row 11 plain; row 12 with the prologue,
-    with the prologue and the residual, and with neither; then a ragged
-    slab (h, w and Co off the tiles), fp32, and row 12 at an edge-heavy
-    shift (a prologue applied to the zero border would show there). The
-    library yardstick is cuDNN's bf16 conv of the same slab with its bias
-    (for row 12 the conv alone). Also the gate's refusal at 10x16."""
+    frequent level-0 site first: in bf16 row 11 plain and row 12 with the
+    prologue, with the prologue and the residual, and with neither; then a
+    ragged slab (h, w and Co off the tiles), fp32 at B = 2 and its edges
+    (a ragged slab, C = 24 below one 32-channel chunk, C = 40 with a
+    ragged one), and row 12 at an edge-heavy shift in both dtypes (a
+    prologue applied to the zero border would show there); then fp32 at
+    every routed site, each in the variants the routes take there
+    (`routed_conv_cases`). Every fp32 case is held to the ref64 rule too.
+    The library yardstick is cuDNN's conv of the same slab with its bias
+    (for row 12 the conv alone), in fp32 with TF32 off; fp32 cases also
+    time it with TF32 on (`library_tf32_ms`: one TF32 pass, context only).
+    Also the gate's refusal at 10x16. `dtypes`: only the cases in those."""
     from open_pandora_tpu_torch.core import flags
     from open_pandora_tpu_torch.ops.conv2d import (conv3x3_eligible,
                                                    conv3x3_fused,
@@ -1195,11 +1249,21 @@ def check_conv(summary: dict, device, gen) -> None:
               (3, 37, 45, 64, 72, bf16, "pro_res", 0.0),
               (2, 40, 64, 320, 320, f32, "plain", 0.0),
               (2, 40, 64, 320, 320, f32, "pro_res", 0.0),
-              (2, 40, 64, 320, 320, bf16, "pro_res", 5.0)]
+              (3, 37, 45, 64, 72, f32, "pro_res", 0.0),
+              (2, 20, 32, 24, 64, f32, "pro", 0.0),
+              (2, 16, 24, 40, 48, f32, "pro_res", 0.0),
+              (2, 40, 64, 320, 320, bf16, "pro_res", 5.0),
+              (2, 40, 64, 320, 320, f32, "pro_res", 5.0)]
+    cases += [(32, h, w, c, co, f32, v, 0.0)
+              for h, w, c, co, v in routed_conv_cases()]
+    cases = [c for c in cases if dtypes is None or c[5] in dtypes]
 
     def rnd(*shape, dt=f32, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=gen, device=device) * scale
                 + shift).to(dt)
+
+    def d64(t):
+        return None if t is None else t.double()
     for B, H, W, C, Co, dt, variant, shift in cases:
         x = rnd(B, H, W, C, dt=dt)
         w = rnd(3, 3, C, Co, dt=dt, scale=(9 * C) ** -0.5)
@@ -1223,22 +1287,38 @@ def check_conv(summary: dict, device, gen) -> None:
         wc = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         bc = b.to(dt)
+
+        def cudnn():
+            return F.conv2d(xc, wc, bc, padding=1)
+
+        def cudnn_tf32():
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                return cudnn()
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        fp32 = dt == f32
         m = B * H * W
         nbytes = ((x.numel() + 9 * C * Co + m * Co
                    + (m * Co if r is not None else 0)) * x.element_size()
                   + (2 * B * C if pro else 0) * 4 + Co * 4)
+        library = "cuDNN conv + bias" + (" (no prologue or residual)"
+                                         if name != "conv3x3" else "")
         _check(summary, name,
                {"shape": [B, H, W, C], "Co": Co, "variant": variant,
                 "shift": shift, "dtype": str(dt).replace("torch.", ""),
-                "library": "cuDNN conv + bias" + (
-                    " (no prologue or residual)" if name != "conv3x3"
-                    else "")},
+                "library": library,
+                **({"library_tf32": library + " with TF32 on: one TF32 "
+                    "pass, context only"} if fp32 else {})},
                kern, lambda: conv3x3_fused_plain(x, w, b, a, sh, r),
                lambda: conv3x3_fused_plain(
                    x.float(), w.float(), b, a, sh,
                    None if r is None else r.float()),
-               (nbytes, 2 * m * Co * 9 * C, dt),
-               lambda: F.conv2d(xc, wc, bc, padding=1))
+               (nbytes, 2 * m * Co * 9 * C, dt), cudnn,
+               timed={"library_tf32_ms": cudnn_tf32} if fp32 else None,
+               ref64_fn=(lambda: conv3x3_fused_plain(
+                   x.double(), w.double(), b.double(), d64(a), d64(sh),
+                   d64(r))) if fp32 else None)
         del x, w, b, a, sh, r, packed, xc, wc, bc
     with flags.overridden(ENABLE_PCONV=True, ENABLE_PCONV2=True):
         refusal = {"10x16x1280x1280": not conv3x3_eligible(10, 16, 1280, 1280)
@@ -2069,6 +2149,115 @@ def run_conv_route(device, seed: int, model) -> dict:
                              "non-finite")
     for k in KERNEL_KEYS:
         total[k] += got[k]
+    if min(total[k] for k in ("conv3x3", "conv3x3_fused")) <= 0:
+        raise AssertionError("a kernel of the path never launched")
+    return total
+
+
+# -- phase 5d: the conv routes in an fp32 UNet eval ---------------------------
+
+CONV_FP32_REL = 1e-3    # a routed fp32 eval against the default route's,
+                        # relative to max|eps|: wiring only (phase 3 holds
+                        # the kernels' precision)
+
+
+def run_conv_fp32(device, seed: int) -> dict:
+    """PandoraConfig()'s UNet in fp32 (random weights from the seed), one
+    CFG eval at 320x512 on the default route (cuDNN's fp32 convs, TF32
+    off), then under PANDORA_ENABLE_PCONV2 and under PANDORA_ENABLE_PCONV:
+    the 23 routed conv sites on the fp32 conv kernel, rows 3-5 not at all
+    (the fused route is bf16's); each eval's launches against the
+    routing, its eps within CONV_FP32_REL max|eps| of the default route's,
+    its distance from the default route with TF32 allowed beside it (the
+    library's own fp32 shortcut, context only), and seconds per eval (a
+    cold call, then two timed). Returns the evals' launches."""
+    from open_pandora_tpu_torch.core import flags
+    from open_pandora_tpu_torch.core.config import PandoraConfig
+    from open_pandora_tpu_torch.core.init import init_random_
+    from open_pandora_tpu_torch.models.unet3d import UNetModel
+
+    cfg = PandoraConfig()
+    u = cfg.unet
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+    with torch.device("meta"):
+        unet = UNetModel(u)
+    unet = unet.to_empty(device=device).eval()
+    init_random_(unet, gen)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+    x = rnd(2, u.temporal_length, 40, 64, u.in_channels)
+    ctx = rnd(2, u.text_context_len
+              + u.temporal_length * u.img_tokens_per_frame, u.context_dim)
+    steps = torch.tensor([600, 600], device=device)
+    fs = torch.tensor([3, 3], device=device)
+
+    def evaluate():
+        with torch.no_grad():
+            out = unet(x, steps, ctx, fs=fs)
+        torch.cuda.synchronize()
+        return out
+
+    def timed():
+        evaluate()                                  # cold
+        reset_launches()
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = evaluate()
+            walls.append(time.perf_counter() - t0)
+        return out, walls, {k: n // 2 for k, n in read_launches().items()}
+
+    total = dict.fromkeys(KERNEL_KEYS, 0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        eps_tf32 = evaluate()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    eps0, walls, got = timed()
+    scale = eps0.abs().max().item()
+    log("conv_fp32", json.dumps({
+        "conv_route": "default", "dtype": "float32", "eval_s": walls,
+        "max_abs_eps": scale,
+        "max_abs_diff_vs_default_tf32": (eps0 - eps_tf32).abs().max().item(),
+        "launches": got}))
+    want = predicted_launches(cfg, 320, 512, 1, frame_chunk=8,
+                              fused=False)["per_eval"]
+    if got != want or not bool(torch.isfinite(eps0).all()):
+        raise AssertionError(f"fp32 default eval: launches {got} != {want}, "
+                             "or non-finite")
+    for k in KERNEL_KEYS:
+        total[k] += 2 * got[k]
+    for flag, key in CONV_ROUTES:
+        with flags.overridden(**{flag: True}):
+            eps, walls, got = timed()
+            want = predicted_launches(cfg, 320, 512, 1, frame_chunk=8,
+                                      fused=False)["per_eval"]
+            snap = flags.snapshot()
+        diff = (eps - eps0).abs().max().item()
+        log("conv_fp32", json.dumps({
+            "conv_route": key, "dtype": "float32", "flags": snap,
+            "eval_s": walls, "max_abs_diff_vs_default": diff,
+            "limit": CONV_FP32_REL * scale,
+            "max_abs_diff_vs_default_tf32": (eps - eps_tf32).abs().max()
+            .item(), "launches": got, "predicted": want}))
+        # 23 routed sites at 320x512, as in bf16 (phase 5c); the fp32 eval
+        # takes no packed, fused temporal or GroupNorm kernel (rows 3-5)
+        if want[key] != 23 or any(want[k] for k in ("packed", "group_norm",
+                                                      "fused_temporal")):
+            raise AssertionError(f"the routing predicts {want}")
+        if got != want:
+            raise AssertionError(f"fp32 {flag}: launches {got} != {want}")
+        if not (bool(torch.isfinite(eps).all())
+                and diff <= CONV_FP32_REL * scale):
+            raise AssertionError(f"fp32 {flag}: eps {diff} from the default "
+                                 "route's")
+        for k in KERNEL_KEYS:
+            total[k] += 2 * got[k]
+    del unet
+    torch.cuda.empty_cache()
     if min(total[k] for k in ("conv3x3", "conv3x3_fused")) <= 0:
         raise AssertionError("a kernel of the path never launched")
     return total
@@ -3978,11 +4167,11 @@ def main(argv=None) -> int:
     p.add_argument("--multi-worker", nargs=2, metavar=("OUT", "PROMPT"),
                    help=argparse.SUPPRESS)
     p.add_argument("--fp32-only", action="store_true",
-                   help="phases 1-2, phase 3's fp32 attention cases (rows "
-                   "1, 2, 9, 10) and phase 6b, then stop without a result "
-                   "line (from a tree whose csrc/ is another commit's, this "
-                   "times that commit's kernels by this script's cases and "
-                   "rules)")
+                   help="phases 1-2, phase 3's fp32 cases (rows 1, 2, 9, "
+                   "10, 11, 12), phase 5d and phase 6b, then stop without "
+                   "a result line (from a tree whose csrc/ is another "
+                   "commit's, this times that commit's kernels by this "
+                   "script's cases and rules)")
     args = p.parse_args(argv)
     if args.multi_worker:
         return multi_worker(*args.multi_worker, args.seed)
@@ -4019,6 +4208,8 @@ def main(argv=None) -> int:
         check_flash(summary, device, gen, dtypes=(torch.float32,))
         check_small(summary, device, gen, dtypes=(torch.float32,))
         check_attention_bwd(summary, device, gen, dtypes=(torch.float32,))
+        check_conv(summary, device, gen, dtypes=(torch.float32,))
+        run_conv_fp32(device, args.seed)
         run_train(device, args.seed, fp32=True)
         log("run", f"wall {time.perf_counter() - t_run:.1f} s (fp32 only)")
         return 0
@@ -4035,6 +4226,7 @@ def main(argv=None) -> int:
              "conv": run_conv_route(device, args.seed, model)}
     del model
     torch.cuda.empty_cache()
+    paths["conv_fp32"] = run_conv_fp32(device, args.seed)
     paths["wide_heads"] = run_wide_heads(device, args.seed)
     paths["train"] = run_train(device, args.seed)
     torch.cuda.empty_cache()

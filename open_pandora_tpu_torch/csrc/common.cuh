@@ -611,6 +611,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       : "memory");
 }
 
+// TMA: the box of a 4-D tensor map at (c0 innermost, c1, c2, c3) into
+// shared memory, completing on `bar`; coordinates may lie outside the
+// tensor (what falls outside fills with zeros).
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // A barrier among `count` threads (a multiple of 32) under id 1-15.
 __device__ __forceinline__ void named_bar(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");

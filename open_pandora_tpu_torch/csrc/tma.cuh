@@ -1,7 +1,7 @@
-// Host side of the TMA: tensor maps of 2-D bf16 tensors, encoded through
-// cuTensorMapEncodeTiled, which the runtime's driver entry point gives
-// (fused_temporal_attn.cu, fused_geglu.cu), so nothing links against
-// libcuda.
+// Host side of the TMA: tensor maps of 2-D bf16 tensors and of 2-D and
+// 4-D fp32 tensors, encoded through cuTensorMapEncodeTiled, which the
+// runtime's driver entry point gives (fused_temporal_attn.cu,
+// fused_geglu.cu, conv3x3.cu), so nothing links against libcuda.
 #pragma once
 
 #include <cuda.h>
@@ -42,6 +42,22 @@ inline bool encode_bf16_2d(CUtensorMap* m, const __nv_bfloat16* p,
             const_cast<__nv_bfloat16*>(p), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An fp32 tensor of `rank` dims (dims[0] innermost, contiguous; strides in
+// bytes of dims 1..rank-1) in boxes of `box`, the innermost box 32 floats
+// (one 128-byte row), 128-byte swizzled. Boxes past an edge fill with
+// zeros, before the first element too.
+inline bool encode_f32(CUtensorMap* m, const float* p, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  PFN_cuTensorMapEncodeTiled_v12000 fn = tensor_map_encoder();
+  if (fn == nullptr) return false;
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<float*>(p),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -90,7 +90,7 @@ KERNEL_CLASSES = (
     ("fused_temporal_attn", ("fused_temporal_kernel",
                              "fused_temporal_tc_kernel")),
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
-    ("conv3x3", ("conv3x3_wg_kernel", "conv3x3_f32_kernel")),  # both rows
+    ("conv3x3", ("conv3x3_wg_kernel", "conv3x3_tf32_kernel")),  # both rows
     ("fused_geglu", ("geglu_ln_kernel", "geglu_gemm_kernel",
                      "fused_geglu_f32_kernel")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad")),

@@ -186,18 +186,21 @@ def conv3x3_fused_plain(x: torch.Tensor, w: torch.Tensor,
     """The fused kernel's function with its casts: silu(x * scale + shift)
     in fp32, rounded to x.dtype (skipped when scale is None); zero padding
     after it; the weight rounded to x.dtype; products accumulated in fp32;
-    + bias, + residual (rounded to x.dtype) in fp32; one cast."""
+    + bias, + residual (rounded to x.dtype) in fp32; one cast. float64
+    inputs stay float64 throughout (the reference the fp32 kernel is held
+    to)."""
     dt = x.dtype
-    xf = x.float()
+    ct = torch.float64 if dt == torch.float64 else torch.float32
+    xf = x.to(ct)
     if scale is not None:
-        xf = F.silu(xf * scale.float()[:, None, None, :]
-                    + shift.float()[:, None, None, :]).to(dt).float()
-    wf = w.to(dt).float().permute(3, 2, 0, 1)              # OIHW
+        xf = F.silu(xf * scale.to(ct)[:, None, None, :]
+                    + shift.to(ct)[:, None, None, :]).to(dt).to(ct)
+    wf = w.to(dt).to(ct).permute(3, 2, 0, 1)               # OIHW
     y = F.conv2d(xf.permute(0, 3, 1, 2), wf, padding=1).permute(0, 2, 3, 1)
     if b is not None:
-        y = y + b.float()
+        y = y + b.to(ct)
     if residual is not None:
-        y = y + residual.to(dt).float()
+        y = y + residual.to(dt).to(ct)
     return y.to(dt)
 
 

@@ -26,7 +26,7 @@ from open_pandora_tpu_torch.models.layers import GroupNorm32, SConv3x3
 from open_pandora_tpu_torch.models.unet3d import ResBlock
 from open_pandora_tpu_torch.ops import conv2d as tc2
 from open_pandora_tpu_torch.ops import kernels
-from test_torch_fused_ops import BF16, _meta_eval, _spy_unet
+from test_torch_fused_ops import BF16, F32, _meta_eval, _spy_unet
 
 # the module, not the function that open_pandora_tpu.ops exports by its name
 jatt = importlib.import_module("open_pandora_tpu.ops.attention")
@@ -302,19 +302,29 @@ def test_resblock_fused_route_matches_jax(monkeypatch, _interpret_pallas,
 
 # -- the full-width UNet's conv routes, traced on the meta device ----------------
 
-@pytest.mark.parametrize("flag,height,width,sites,gn_drop", [
-    ("PANDORA_ENABLE_PCONV2", 320, 512, 23, 20),
-    ("PANDORA_ENABLE_PCONV", 320, 512, 23, 0),
-    ("PANDORA_ENABLE_PCONV2", 576, 1024, 34, 30),
+@pytest.mark.parametrize("flag,height,width,sites,gn_drop,dtype", [
+    pytest.param("PANDORA_ENABLE_PCONV2", 320, 512, 23, 20, BF16,
+                 id="PANDORA_ENABLE_PCONV2-320-512-23-20"),
+    pytest.param("PANDORA_ENABLE_PCONV", 320, 512, 23, 0, BF16,
+                 id="PANDORA_ENABLE_PCONV-320-512-23-0"),
+    pytest.param("PANDORA_ENABLE_PCONV2", 576, 1024, 34, 30, BF16,
+                 id="PANDORA_ENABLE_PCONV2-576-1024-34-30"),
+    pytest.param("PANDORA_ENABLE_PCONV2", 320, 512, 23, 0, F32,
+                 id="PANDORA_ENABLE_PCONV2-320-512-fp32"),
+    pytest.param("PANDORA_ENABLE_PCONV", 320, 512, 23, 0, F32,
+                 id="PANDORA_ENABLE_PCONV-320-512-fp32"),
+    pytest.param("PANDORA_ENABLE_PCONV2", 576, 1024, 34, 0, F32,
+                 id="PANDORA_ENABLE_PCONV2-576-1024-fp32"),
 ])
 def test_full_width_conv_routes_as_predicted(monkeypatch, flag, height, width,
-                                             sites, gn_drop):
-    """PandoraConfig() in bf16 eval with a conv flag: every routed site
-    passes the conv kernel's shape checks (a stand-in launcher on meta
-    tensors), and the launches per CFG eval equal chip_smoke's prediction:
-    23 conv sites at 320x512 and 34 at 576x1024, (72, 128, 960 -> 320)
-    whole; under PCONV2 each routed ResBlock conv takes its GroupNorm
-    along."""
+                                             sites, gn_drop, dtype):
+    """PandoraConfig() in eval with a conv flag: every routed site passes
+    the conv kernel's shape checks (a stand-in launcher on meta tensors),
+    and the launches per CFG eval equal chip_smoke's prediction: 23 conv
+    sites at 320x512 and 34 at 576x1024, (72, 128, 960 -> 320) whole. In
+    bf16, under PCONV2 each routed ResBlock conv takes its GroupNorm
+    along; in fp32 (the unfused route) the same sites take the fp32 conv
+    kernel and rows 3-5 do not launch."""
     calls = _spy_unet(monkeypatch)
 
     def conv(x, packed, b, scale, shift, residual, *, fused):
@@ -330,16 +340,20 @@ def test_full_width_conv_routes_as_predicted(monkeypatch, flag, height, width,
     monkeypatch.setattr(kernels, "fused_available", lambda x: True)
     cfg = tcfg.PandoraConfig()
     chunk = 8 if height == 320 else 2
+    fused = dtype == BF16
     base = chip_smoke.predicted_launches(cfg, height, width, 1,
                                          frame_chunk=chunk,
-                                         fused=True)["per_eval"]
+                                         fused=fused)["per_eval"]
     monkeypatch.setenv(flag, "1")
-    _meta_eval(cfg.unet, BF16, height, width)
+    _meta_eval(cfg.unet, dtype, height, width)
     got = {k: calls.count(k) for k in chip_smoke.KERNEL_KEYS}
     want = chip_smoke.predicted_launches(cfg, height, width, 1,
                                          frame_chunk=chunk,
-                                         fused=True)["per_eval"]
+                                         fused=fused)["per_eval"]
     assert got == want
+    if not fused:
+        assert got["packed"] == got["fused_temporal"] == 0
+        assert got["group_norm"] == base["group_norm"] == 0
     key = "conv3x3_fused" if flag.endswith("2") else "conv3x3"
     assert got[key] == sites
     assert got["conv3x3" if key == "conv3x3_fused" else "conv3x3_fused"] == 0
