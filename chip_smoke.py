@@ -11,7 +11,7 @@ Phases, each printing its own lines and raising on failure:
   3. kernels  each CUDA kernel against its plain PyTorch version at every
               shape of the slices' main paths (320x512 and 576x1024), plus
               ragged cases (and fp32 ones for the kernels that take fp32;
-              rows 1, 2, 9, 10, 11 and 12 at fp32 also within 8
+              rows 1, 2 and 9-13 at fp32 also within 8
               max|ref32 - ref64| of the float64 plain version, and at the
               full-width fp32 shapes: an fp32 training step's and an fp32
               clip's);
@@ -24,7 +24,9 @@ Phases, each printing its own lines and raising on failure:
               B = 32, in fp32 in the variants each route takes there
               (cuDNN's fp32 conv beside it, TF32 off and, for context,
               on: `library_tf32_ms`); the GEGLU kernel
-              at the UNet's feed-forward widths; the fused temporal kernel
+              at the UNet's feed-forward widths in bf16 and fp32 (its
+              eager chain beside it, in fp32 TF32 off and, for context,
+              on: `eager_tf32_ms`); the fused temporal kernel
               and the GroupNorm kernel at every shape a trace of the UNet
               hands them at either resolution, the fused temporal lines
               naming the kernel taken, beside its eager PyTorch chain
@@ -292,7 +294,7 @@ def cuda_ms(fn, *, warmup: int = 2, iters: int = 5) -> float:
 # accurate to fp32 can run there and so pass the CUDA cores' 67 TFLOP/s
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
-# the fp32 cases of rows 1, 2, 9 and 10, beside the rule of _kernel_bound:
+# the fp32 cases of rows 1, 2 and 9-13, beside the rule of _kernel_bound:
 # max|kernel - ref64| within REF64_FACTOR max|ref32 - ref64| (ref64: the
 # plain version in float64 on the same inputs). One TF32 pass meets the
 # 1%-of-the-mean rule; it misses this one by orders of magnitude
@@ -1342,15 +1344,28 @@ def geglu_eager(x, g, b, w1, b1, w2, b2, eps=1e-5):
 # (rows, c, dtype) of row 13: the UNet's feed-forward widths (320, 640,
 # 1280 at the rows of the spatial transformers at 320x512, 294912 at
 # 576x1024 level 0), ragged row counts, a width past the UNet's that the
-# JAX gate admits (1920), and fp32
-GEGLU_CASES = [(81920, 320, torch.bfloat16), (20480, 640, torch.bfloat16),
-               (5120, 1280, torch.bfloat16), (294912, 320, torch.bfloat16),
-               (1000, 320, torch.bfloat16), (77, 1280, torch.bfloat16),
-               (5120, 1920, torch.bfloat16), (4096, 640, torch.float32)]
+# JAX gate admits (1920), in bf16 and in fp32
+GEGLU_SHAPES = [(81920, 320), (20480, 640), (5120, 1280), (294912, 320),
+                (1000, 320), (77, 1280), (5120, 1920)]
+GEGLU_CASES = ([(r, c, torch.bfloat16) for r, c in GEGLU_SHAPES]
+               + [(4096, 640, torch.float32)]
+               + [(r, c, torch.float32) for r, c in GEGLU_SHAPES])
 
 
-def check_geglu(summary: dict, device, gen) -> None:
-    """Row 13 at GEGLU_CASES. No single PyTorch call computes it."""
+def geglu_ref64(args, rows: int = 65536):
+    """The plain version in float64 on the same inputs, by slices of
+    `rows` rows (its gated rows are 16 inner bytes a row)."""
+    from open_pandora_tpu_torch.ops.fused_geglu import geglu_ff_plain
+    x, *rest = [t.double() for t in args]
+    return torch.cat([geglu_ff_plain(x[i:i + rows], *rest)
+                      for i in range(0, x.shape[0], rows)])
+
+
+def check_geglu(summary: dict, device, gen, dtypes=None) -> None:
+    """Row 13 at GEGLU_CASES. No single PyTorch call computes it; the
+    yardstick is its eager chain (`eager_ms`), in fp32 with TF32 off and,
+    for context, on (`eager_tf32_ms`: one TF32 pass). Every fp32 case is
+    held to the ref64 rule too. `dtypes`: only the cases in those."""
     from open_pandora_tpu_torch.ops.fused_geglu import (fused_geglu_ff,
                                                         geglu_ff_plain)
 
@@ -1358,6 +1373,8 @@ def check_geglu(summary: dict, device, gen) -> None:
         return (torch.randn(*shape, generator=gen, device=device) * scale
                 + shift).to(dt)
     for R, c, dt in GEGLU_CASES:
+        if dtypes is not None and dt not in dtypes:
+            continue
         inner = 4 * c
         args = (rnd(R, c, dt=dt, scale=3.0),
                 rnd(c, dt=dt, scale=0.1, shift=1.0), rnd(c, dt=dt, scale=0.05),
@@ -1366,14 +1383,27 @@ def check_geglu(summary: dict, device, gen) -> None:
                 rnd(inner, c, dt=dt, scale=inner ** -0.5),
                 rnd(c, dt=dt, scale=0.02))
         es = args[0].element_size()
+        fp32 = dt == torch.float32
+        timed = {"eager_ms": lambda: geglu_eager(*args)}
+        if fp32:
+            def eager_tf32():
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    return geglu_eager(*args)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+            timed["eager_tf32_ms"] = eager_tf32
         _check(summary, "fused_geglu",
                {"shape": [R, c], "inner": inner,
-                "dtype": str(dt).replace("torch.", "")},
+                "dtype": str(dt).replace("torch.", ""),
+                **({"eager_tf32": "the eager chain with matmul TF32 on: one "
+                    "TF32 pass, context only"} if fp32 else {})},
                lambda: fused_geglu_ff(*args),
                lambda: geglu_ff_plain(*args),
                lambda: geglu_ff_plain(*[t.float() for t in args]),
                ((2 * R * c + 12 * c * c + 11 * c) * es, 24 * R * c * c, dt),
-               timed={"eager_ms": lambda: geglu_eager(*args)})
+               timed=timed,
+               ref64_fn=(lambda: geglu_ref64(args)) if fp32 else None)
         del args
 
 
@@ -4168,7 +4198,7 @@ def main(argv=None) -> int:
                    help=argparse.SUPPRESS)
     p.add_argument("--fp32-only", action="store_true",
                    help="phases 1-2, phase 3's fp32 cases (rows 1, 2, 9, "
-                   "10, 11, 12), phase 5d and phase 6b, then stop without "
+                   "10, 11, 12, 13), phase 5d and phase 6b, then stop without "
                    "a result line (from a tree whose csrc/ is another "
                    "commit's, this times that commit's kernels by this "
                    "script's cases and rules)")
@@ -4209,6 +4239,7 @@ def main(argv=None) -> int:
         check_small(summary, device, gen, dtypes=(torch.float32,))
         check_attention_bwd(summary, device, gen, dtypes=(torch.float32,))
         check_conv(summary, device, gen, dtypes=(torch.float32,))
+        check_geglu(summary, device, gen, dtypes=(torch.float32,))
         run_conv_fp32(device, args.seed)
         run_train(device, args.seed, fp32=True)
         log("run", f"wall {time.perf_counter() - t_run:.1f} s (fp32 only)")

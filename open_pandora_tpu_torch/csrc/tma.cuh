@@ -46,18 +46,20 @@ inline bool encode_bf16_2d(CUtensorMap* m, const __nv_bfloat16* p,
 }
 
 // An fp32 tensor of `rank` dims (dims[0] innermost, contiguous; strides in
-// bytes of dims 1..rank-1) in boxes of `box`, the innermost box 32 floats
-// (one 128-byte row), 128-byte swizzled. Boxes past an edge fill with
-// zeros, before the first element too.
+// bytes of dims 1..rank-1) in boxes of `box`: by default the innermost box
+// 32 floats (one 128-byte row), 128-byte swizzled; with swizzle false a
+// plain row-major box (innermost up to 256 floats, a multiple of 4). Boxes
+// past an edge fill with zeros, before the first element too.
 inline bool encode_f32(CUtensorMap* m, const float* p, int rank,
                        const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box) {
+                       const cuuint32_t* box, bool swizzle = true) {
   PFN_cuTensorMapEncodeTiled_v12000 fn = tensor_map_encoder();
   if (fn == nullptr) return false;
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<float*>(p),
             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

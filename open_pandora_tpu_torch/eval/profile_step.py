@@ -92,7 +92,7 @@ KERNEL_CLASSES = (
     ("group_norm_silu", ("gn_stats_kernel", "gn_apply_kernel")),
     ("conv3x3", ("conv3x3_wg_kernel", "conv3x3_tf32_kernel")),  # both rows
     ("fused_geglu", ("geglu_ln_kernel", "geglu_gemm_kernel",
-                     "fused_geglu_f32_kernel")),
+                     "geglu_tf32_kernel")),
     ("conv", ("conv", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("softmax", ("softmax",)),

@@ -24,12 +24,19 @@ from open_pandora_tpu_torch.ops import kernels
 # the JAX package's VMEM tile model, copied as its gate's rule only: it
 # never tiles the card's kernel
 _VMEM_BUDGET = 8 * 2 ** 20
-# the card's kernels: GEMM tiles of 128 rows (the up-projection's 128 value
-# and 128 gate columns), a block's shared memory
+# the card's kernels: GEMM tiles of 128 rows, a block's shared memory, the
+# LN pass's widest row (a warp holds it in its registers)
 TILE_ROWS = 128
-TILE_INNER = 128
 SMEM_LIMIT = 232448
-MAX_C_BF16 = 4096    # the LN pass holds a row in a warp's registers
+MAX_C = 4096
+# bf16: up-projection tiles of 128 value and the same 128 gate columns
+BF16_VALUE_COLS = 128
+# fp32 (split TF32): pieces of 32 k, four A slots of 128 rows, three raw
+# and two split (hi, lo) weight slots of the tile's columns
+# (`TF32Plan`)
+TF32_PIECE = 32
+TF32_A_SLOTS = 4
+TF32_W_SLOTS = 3 + 2 * 2
 
 
 def _vmem_bytes(r: int, c: int, ck: int) -> int:
@@ -48,22 +55,35 @@ def _pick_tiles(c: int, inner: int):
 def geglu_ff_eligible(c: int, mult: int = 4) -> bool:
     """The JAX gate (`geglu_ff_eligible`: a tile plan within its VMEM
     model), and what the card's kernels take: c a multiple of 32. The
-    kernels' own widest c (4096 in bf16, about 5800 in fp32) lies beyond
-    the JAX gate's widest (3392)."""
+    kernels' own widest c (4096, the LN pass's registers) lies beyond the
+    JAX gate's widest (3392)."""
     return _pick_tiles(c, c * mult) is not None and c % 32 == 0
 
 
 class LaunchPlan(NamedTuple):
-    """How the kernels cover one call. bf16 (route "wgmma"): the LN pass,
-    then the two persistent GEMMs on ctas = (up, down) blocks, the
-    down-projection's tiles bn columns wide, through the workspaces xn
-    (R, c) and h (R, inner), whose shapes are `workspace`. fp32 (route
-    "scalar"): one kernel of rows_f32 rows a block and no workspace."""
+    """How the kernels cover one call: the LN pass into the workspace xn
+    (R, c), the up-projection with the GEGLU epilogue into the workspace h
+    (R, inner), the down-projection with b2 and the residual; `workspace`
+    holds their shapes, in x's dtype. Both GEMMs are persistent on `ctas` =
+    (up, down) blocks; an up-projection tile pairs bv value columns with
+    the same bv gate columns, a down-projection tile is bn output columns
+    wide, both 128 rows. bf16 (route "wgmma"): bv 128, bn 256 where c % 256
+    == 0, else 128; each GEMM's ring fills a block's shared memory (`smem`
+    empty). fp32 (route "tf32", split TF32): bv 80 where inner % 80 == 0,
+    else 64; bn 160 where c % 160 == 0, else 128; `smem` = (up, down) bytes
+    of a block's shared memory at the kernel's fixed ring depths."""
     route: str
+    bv: int
     bn: int
     ctas: tuple
-    rows_f32: int
     workspace: tuple
+    smem: tuple
+
+
+def _smem_tf32(n: int) -> int:
+    """`TF32Plan<n>::kSmem`."""
+    return (1024 + TF32_A_SLOTS * TILE_ROWS * TF32_PIECE * 4
+            + TF32_W_SLOTS * n * TF32_PIECE * 4 + 256)
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,29 +92,44 @@ def launch_plan(r: int, c: int, inner: int, dtype: torch.dtype,
     """The plan for x (r, c) at the given inner width on a card of `sms`
     multiprocessors, or None where the kernels cannot run it. The GEMMs are
     persistent: at most one block a multiprocessor, each walking tiles."""
-    if c % 32 or r <= 0:
+    if c % 32 or c > MAX_C or r <= 0:
         return None
     if dtype == torch.float32:
-        for rows in (8, 4, 2):       # the block's LN and gated rows
-            if rows * (c + inner) * 4 <= SMEM_LIMIT:
-                return LaunchPlan("scalar", 0, (), rows, ())
-        return None
-    if inner % TILE_INNER or c > MAX_C_BF16:
-        return None
-    bn = 256 if c % 256 == 0 else 128     # the down-projection's tiles
+        if inner % TF32_PIECE:
+            return None
+        bv = 80 if inner % 80 == 0 else 64
+        bn = 160 if c % 160 == 0 else 128
+        smem = (_smem_tf32(2 * bv), _smem_tf32(bn))
+        route = "tf32"
+    else:
+        if inner % BF16_VALUE_COLS:
+            return None
+        bv = BF16_VALUE_COLS
+        bn = 256 if c % 256 == 0 else 128
+        smem = ()
+        route = "wgmma"
     blocks = -(-r // TILE_ROWS)
-    tiles = (blocks * (inner // TILE_INNER), blocks * -(-c // bn))
-    return LaunchPlan("wgmma", bn, tuple(min(t, sms) for t in tiles), 0,
-                      ((r, c), (r, inner)))
+    tiles = (blocks * -(-inner // bv), blocks * -(-c // bn))
+    return LaunchPlan(route, bv, bn, tuple(min(t, sms) for t in tiles),
+                      ((r, c), (r, inner)), smem)
+
+
+def _wide(dt: torch.dtype) -> torch.dtype:
+    """The dtype the plain version computes in: the wider of dt and fp32
+    (float64 stays float64, the reference the card's fp32 kernel is held
+    to)."""
+    return torch.promote_types(dt, torch.float32)
 
 
 def _layer_norm(x2, g, b, eps):
-    """LN with fp32 statistics and a centred variance, cast to x's dtype."""
-    xf = x2.float()
+    """LN with statistics in the wide dtype and a centred variance, cast to
+    x's dtype."""
+    wt = _wide(x2.dtype)
+    xf = x2.to(wt)
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps) * g.float()
-            + b.float()).to(x2.dtype)
+    return ((xf - mu) * torch.rsqrt(var + eps) * g.to(wt)
+            + b.to(wt)).to(x2.dtype)
 
 
 def geglu_gated_plain(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -102,12 +137,14 @@ def geglu_gated_plain(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                       eps: float = 1e-5) -> torch.Tensor:
     """The first half of `geglu_ff_xla`, the tensor h that the card's
     kernels pass from one GEMM to the other through device memory: LN, the
-    up-projection and its bias in x's dtype, the exact-erf gate in fp32,
-    v * gelu(g) cast to x's dtype."""
+    up-projection and its bias in x's dtype, the exact-erf gate in the wide
+    dtype (fp32, or float64 for float64 x), v * gelu(g) cast to x's
+    dtype."""
     dt = x2.dtype
+    wt = _wide(dt)
     hh = _layer_norm(x2, g, b, eps) @ w1 + b1.to(dt)
     val, gate = hh.chunk(2, dim=-1)
-    return (val.float() * F.gelu(gate.float())).to(dt)
+    return (val.to(wt) * F.gelu(gate.to(wt))).to(dt)
 
 
 def geglu_ff_plain(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -123,9 +160,8 @@ def geglu_ff_plain(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 def check_shapes(x2, g, b, w1, b1, w2, b2) -> None:
     """What the kernels take, device aside: x (R, c) fp32 or bf16 and every
     weight in its dtype, contiguous and 16-byte aligned; w1 (c, 2 inner),
-    w2 (inner, c); c a multiple of 32; bf16: inner a multiple of 128, c at
-    most 4096; fp32: two rows and their gated rows within a block's shared
-    memory."""
+    w2 (inner, c); c a multiple of 32, at most 4096; inner a multiple of
+    128 in bf16, of 32 in fp32."""
     name = "fused_geglu_ff"
     if x2.dtype not in kernels.DTYPE_CODES or x2.ndim != 2:
         raise ValueError(f"{name}: needs fp32 or bf16 rows, got {x2.dtype} "
@@ -138,7 +174,8 @@ def check_shapes(x2, g, b, w1, b1, w2, b2) -> None:
             or any(t.shape != s for t, s in shapes)):
         raise ValueError(f"{name}: bad shapes x {tuple(x2.shape)}, "
                          f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)} "
-                         "(c % 32 == 0; bf16: inner % 128 == 0)")
+                         "(c % 32 == 0, c <= 4096; inner % 128 == 0 in "
+                         "bf16, % 32 in fp32)")
     for t in (x2, g, b, w1, b1, w2, b2):
         if t.dtype != x2.dtype or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: every tensor must be contiguous, "
@@ -155,15 +192,13 @@ def _geglu_cuda(x2, g, b, w1, b1, w2, b2, eps):
     out = torch.empty_like(x2)
     # the workspaces come from PyTorch's caching allocator, per call
     xn, h = (torch.empty(s, dtype=x2.dtype, device=x2.device)
-             for s in plan.workspace) if plan.workspace else (None, None)
-    ctas = plan.ctas or (0, 0)
+             for s in plan.workspace)
     with torch.cuda.device(x2.device):
         err = kernels.library().pandora_fused_geglu(
             x2.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            None if xn is None else xn.data_ptr(),
-            None if h is None else h.data_ptr(), r, c, inner, plan.bn,
-            *ctas, plan.rows_f32, float(eps), kernels.DTYPE_CODES[x2.dtype],
+            xn.data_ptr(), h.data_ptr(), r, c, inner, plan.bv, plan.bn,
+            *plan.ctas, float(eps), kernels.DTYPE_CODES[x2.dtype],
             kernels.stream_handle(x2))
     kernels.check_cuda(err, "pandora_fused_geglu")
     fused_geglu_ff.launches += 1

@@ -155,34 +155,51 @@ def test_eager_yardstick_computes_row_8(gate):
 
 @pytest.mark.parametrize("r,c,dtype", chip_smoke.GEGLU_CASES)
 def test_geglu_plan_fits_the_card(r, c, dtype):
-    """bf16: the up-projection's tiles (128 rows by 128 value columns) and
-    the down-projection's (128 rows by bn: 256 where c % 256 == 0, else
-    128) cover the rows and columns, no persistent grid exceeds the card,
-    and the workspaces are xn (r, c) and h (r, inner); fp32: the most rows
-    a block whose LN and gated rows fit shared memory."""
+    """Both dtypes: the up-projection's tiles (128 rows by bv value columns
+    and the same bv gate columns) and the down-projection's (128 rows by bn
+    output columns) cover the rows and columns, no persistent grid exceeds
+    the card, the workspaces are xn (r, c) and h (r, inner), and an fp32
+    block's shared memory fits. bf16: bv 128, bn 256 where c % 256 == 0,
+    else 128; fp32 (split TF32): bv 80 where inner % 80 == 0, else 64; bn
+    160 where c % 160 == 0, else 128."""
     inner = 4 * c
     plan = tfg.launch_plan(r, c, inner, dtype, SMS)
     if dtype == torch.float32:
-        assert plan.route == "scalar" and plan.workspace == ()
-        assert plan.rows_f32 * (c + inner) * 4 <= tfg.SMEM_LIMIT
-        return
-    assert plan.route == "wgmma"
-    assert plan.bn == (256 if c % 256 == 0 else 128)
+        assert plan.route == "tf32"
+        assert plan.bv == (80 if inner % 80 == 0 else 64)
+        assert plan.bn == (160 if c % 160 == 0 else 128)
+        assert len(plan.smem) == 2
+    else:   # the bf16 rings fill a block's shared memory in C
+        assert plan.route == "wgmma"
+        assert plan.bv == 128
+        assert plan.bn == (256 if c % 256 == 0 else 128)
+        assert plan.smem == ()
     blocks = _ceil(r, 128)
-    tiles = (blocks * inner // 128, blocks * _ceil(c, plan.bn))
+    tiles = (blocks * _ceil(inner, plan.bv), blocks * _ceil(c, plan.bn))
     assert plan.ctas == tuple(min(t, SMS) for t in tiles)
     assert plan.workspace == ((r, c), (r, inner))
-    # h: the bf16 gated rows, 2 r inner bytes (755 MB at 576x1024 level 0)
+    assert all(0 < m <= tfg.SMEM_LIMIT for m in plan.smem)
+    # h: the gated rows, 2 r inner bytes in bf16 (755 MB at 576x1024 level
+    # 0), twice that in fp32
     if (r, c) == (294912, 320):
         assert 2 * r * inner == 754974720
 
 
-@pytest.mark.parametrize("c,dtype,rows", [(640, torch.float32, 8),
-                                          (1920, torch.float32, 4),
-                                          (3392, torch.float32, 2)])
-def test_geglu_fp32_rows_shrink_with_width(c, dtype, rows):
-    plan = tfg.launch_plan(64, c, 4 * c, dtype, SMS)
-    assert plan.rows_f32 == rows
+@pytest.mark.parametrize("c,bv,bn,smem", [(640, 80, 160, (210176, 210176)),
+                                          (1920, 80, 160, (210176, 210176)),
+                                          (3392, 64, 128, (181504, 181504))])
+def test_geglu_fp32_plan_fits_every_width(c, bv, bn, smem):
+    """The fp32 plan at the UNet's width 640, the widest the phase-3 cases
+    take (1920) and the JAX gate's widest (3392, where inner = 13568 is no
+    multiple of 80 and c no multiple of 160): the tile widths, shared memory
+    at the kernel's fixed ring depths (`TF32Plan`: 1024 + four 16 KB A
+    slots + seven weight slots of 128 bytes a column + 256), and tiles that
+    cover inner and c."""
+    plan = tfg.launch_plan(64, c, 4 * c, torch.float32, SMS)
+    assert (plan.bv, plan.bn, plan.smem) == (bv, bn, smem)
+    assert smem == tuple(1024 + 4 * 16384 + 7 * n * 128 + 256
+                         for n in (2 * bv, bn))
+    assert plan.ctas == (min(_ceil(4 * c, bv), SMS), _ceil(c, bn))
 
 
 def test_geglu_plan_refuses_what_the_kernels_cannot_run():
@@ -210,22 +227,21 @@ def _geglu_args(r, c, dtype=BF16, seed=0):
 
 @pytest.mark.parametrize("r,c", [(300, 64), (77, 256)])
 def test_geglu_wrapper_passes_its_plan(library, r, c):
-    """bf16: the wrapper allocates the two workspaces and hands them to C
-    with the plan's tile width and grids; fp32 passes none."""
+    """Both dtypes: the wrapper allocates the two workspaces in x's dtype
+    and hands them to C with the plan's tile widths and grids."""
     args = _geglu_args(r, c)
-    tfg._geglu_cuda(*args, 1e-5)
-    (name, cargs), = library.calls
-    assert len(cargs) == len(kernels._SIGNATURES[name])
-    plan = tfg.launch_plan(r, c, 4 * c, BF16, SMS)
-    # x .. out, xn, h, then R, c, inner, bn, the two grids, fp32 rows
-    assert cargs[8] is not None and cargs[9] is not None
-    assert cargs[8] != cargs[9]
-    assert cargs[10:17] == (r, c, 4 * c, plan.bn, *plan.ctas, 0)
-    library.calls.clear()
-    tfg._geglu_cuda(*[a.float() for a in args], 1e-5)
-    (_, cargs), = library.calls
-    assert cargs[8] is None and cargs[9] is None
-    assert cargs[10:17] == (r, c, 4 * c, 0, 0, 0, 8)
+    for dt in (BF16, torch.float32):
+        library.calls.clear()
+        tfg._geglu_cuda(*[a.to(dt) for a in args], 1e-5)
+        (name, cargs), = library.calls
+        assert len(cargs) == len(kernels._SIGNATURES[name])
+        plan = tfg.launch_plan(r, c, 4 * c, dt, SMS)
+        # x .. out, xn, h, then R, c, inner, bv, bn, the two grids
+        assert cargs[8] is not None and cargs[9] is not None
+        assert cargs[8] != cargs[9]
+        assert cargs[10:17] == (r, c, 4 * c, plan.bv, plan.bn, *plan.ctas)
+        assert cargs[18] == kernels.DTYPE_CODES[dt]
+    assert tfg.launch_plan(r, c, 4 * c, torch.float32, SMS).route == "tf32"
 
 
 class _Capture:
