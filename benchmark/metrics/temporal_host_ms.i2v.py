@@ -1,0 +1,10 @@
+"""Host milliseconds a UNet eval inside its temporal transformers (and
+`init_attn`): the recorded `unet.temporal` spans' durations
+(models/unet3d `UNetModel._run`) over the recorded `unet` spans of the
+profiled slice."""
+
+from program_spans import host_ms
+
+
+def read(record):
+    return host_ms(record, ("unet.temporal",), "unet")

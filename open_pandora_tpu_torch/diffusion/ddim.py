@@ -19,6 +19,7 @@ import torch
 from open_pandora_tpu_torch.diffusion.schedule import (DiffusionSchedule,
                                                        make_ddim_params,
                                                        make_ddim_timesteps)
+from open_pandora_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -79,6 +80,59 @@ ModelFn = Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]
 NoiseFn = Callable[[int, torch.Tensor], torch.Tensor]
 
 
+def _guide(outs: Dict[str, torch.Tensor], guidance_scale: float,
+           cfg_img: Optional[float], guidance_rescale: float) -> torch.Tensor:
+    """The CFG combine of the streams' outputs, then the rescale."""
+    e_cond = outs["cond"].float()
+    if guidance_scale == 1.0 or "uncond" not in outs:
+        model_output = e_cond
+    elif cfg_img is not None and "uncond_img" in outs:
+        e_uc = outs["uncond"].float()
+        e_uc_img = outs["uncond_img"].float()
+        model_output = (e_uc + cfg_img * (e_uc_img - e_uc)
+                        + guidance_scale * (e_cond - e_uc_img))
+    else:
+        e_uc = outs["uncond"].float()
+        model_output = e_uc + guidance_scale * (e_cond - e_uc)
+    if guidance_rescale > 0.0:
+        model_output = rescale_noise_cfg(model_output, e_cond,
+                                         guidance_rescale)
+    return model_output
+
+
+def _update(x: torch.Tensor, model_output: torch.Tensor, params: DDIMParams,
+            idx: int, noise, generator, parameterization: str
+            ) -> torch.Tensor:
+    """One DDIM step from x with the guided output: v (or eps) to x0, the
+    dynamic rescale, the noise draw, the new x."""
+    xf = x.float()
+    sqrt_ac = float(params.sqrt_ac_t[idx])
+    sqrt_1mac = float(params.sqrt_1mac_t[idx])
+    if parameterization == "v":
+        e_t = sqrt_ac * model_output + sqrt_1mac * xf
+        pred_x0 = sqrt_ac * xf - sqrt_1mac * model_output
+    else:
+        e_t = model_output
+        pred_x0 = (xf - float(params.sqrt_one_minus_at[idx]) * e_t) \
+            / float(np.sqrt(params.a_t[idx]))
+    pred_x0 = pred_x0 * float(params.rescale_t[idx])
+
+    a_prev = params.a_prev[idx]
+    sigma_t = params.sigma_t[idx]
+    dir_coef = np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma_t ** 2,
+                                  np.float32(0.0)))
+    dir_xt = float(dir_coef) * e_t
+    if noise is None:
+        z = torch.randn(x.shape, generator=generator, device=x.device,
+                        dtype=x.dtype)
+    elif callable(noise):
+        z = noise(idx, x)
+    else:
+        z = noise[idx]
+    z = float(sigma_t) * z.to(x.device).float()
+    return (float(np.sqrt(a_prev)) * pred_x0 + dir_xt + z).to(x.dtype)
+
+
 def ddim_sample(model_fn: ModelFn, params: DDIMParams, x_T: torch.Tensor, *,
                 noise: Union[None, NoiseFn, Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
@@ -88,56 +142,25 @@ def ddim_sample(model_fn: ModelFn, params: DDIMParams, x_T: torch.Tensor, *,
     """Run the DDIM reverse process from x_T; returns x_0 latents.
 
     noise: per-step standard normal draws, as noise(idx, x) or a sequence
-    indexed by step; None draws them with `generator` on x's device."""
+    indexed by step; None draws them with `generator` on x's device.
+    Under a profiler each step records a `ddim.step` span (its index in
+    attrs) holding `ddim.eval`, `ddim.guidance` and `ddim.update`."""
     if noise is None and generator is None:
         raise ValueError("ddim_sample: pass `noise` or a `generator`")
     b = x_T.shape[0]
     x = x_T
     for idx in range(params.num_steps):
-        t_b = torch.full((b,), int(params.ts[idx]), dtype=torch.int64,
-                         device=x.device)
-        outs = model_fn(x, t_b)
-        e_cond = outs["cond"].float()
-        if guidance_scale == 1.0 or "uncond" not in outs:
-            model_output = e_cond
-        elif cfg_img is not None and "uncond_img" in outs:
-            e_uc = outs["uncond"].float()
-            e_uc_img = outs["uncond_img"].float()
-            model_output = (e_uc + cfg_img * (e_uc_img - e_uc)
-                            + guidance_scale * (e_cond - e_uc_img))
-        else:
-            e_uc = outs["uncond"].float()
-            model_output = e_uc + guidance_scale * (e_cond - e_uc)
-        if guidance_rescale > 0.0:
-            model_output = rescale_noise_cfg(model_output, e_cond,
-                                             guidance_rescale)
-
-        xf = x.float()
-        sqrt_ac = float(params.sqrt_ac_t[idx])
-        sqrt_1mac = float(params.sqrt_1mac_t[idx])
-        if parameterization == "v":
-            e_t = sqrt_ac * model_output + sqrt_1mac * xf
-            pred_x0 = sqrt_ac * xf - sqrt_1mac * model_output
-        else:
-            e_t = model_output
-            pred_x0 = (xf - float(params.sqrt_one_minus_at[idx]) * e_t) \
-                / float(np.sqrt(params.a_t[idx]))
-        pred_x0 = pred_x0 * float(params.rescale_t[idx])
-
-        a_prev = params.a_prev[idx]
-        sigma_t = params.sigma_t[idx]
-        dir_coef = np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma_t ** 2,
-                                      np.float32(0.0)))
-        dir_xt = float(dir_coef) * e_t
-        if noise is None:
-            z = torch.randn(x.shape, generator=generator, device=x.device,
-                            dtype=x.dtype)
-        elif callable(noise):
-            z = noise(idx, x)
-        else:
-            z = noise[idx]
-        z = float(sigma_t) * z.to(x.device).float()
-        x = (float(np.sqrt(a_prev)) * pred_x0 + dir_xt + z).to(x.dtype)
+        with span("ddim.step", index=idx):
+            with span("ddim.eval"):
+                t_b = torch.full((b,), int(params.ts[idx]),
+                                 dtype=torch.int64, device=x.device)
+                outs = model_fn(x, t_b)
+            with span("ddim.guidance"):
+                model_output = _guide(outs, guidance_scale, cfg_img,
+                                      guidance_rescale)
+            with span("ddim.update"):
+                x = _update(x, model_output, params, idx, noise, generator,
+                            parameterization)
     return x
 
 

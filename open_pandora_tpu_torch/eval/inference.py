@@ -41,6 +41,7 @@ from open_pandora_tpu_torch.models.lora import add_lora_params, is_adapter
 from open_pandora_tpu_torch.pipeline.preprocess import (diffusion_preprocess,
                                                         to_unit_float)
 from open_pandora_tpu_torch.pipeline.tokenizers import load_clip_tokenizer
+from open_pandora_tpu_torch.utils import profiling
 
 
 def debug_config(t: int = 4) -> PandoraConfig:
@@ -87,7 +88,9 @@ def synthesize(model: DynamiCrafter, image: np.ndarray, prompt: str, *,
 
     `generator` (on the model's device) draws x_T and the DDIM noise. If a
     `timings` dict is given, the device is synchronised between phases and
-    it receives conditioning_s, sampling_s, step_s and decode_s."""
+    it receives conditioning_s, sampling_s, step_s and decode_s. Under a
+    profiler the call records a `clip` span (utils/profiling.clip) holding
+    `conditioning`, `sampling` and `decode`, each ending at its mark."""
     dev = model.device
     tokenizer = tokenizer or load_clip_tokenizer()
     img = to_unit_float(image, dev)
@@ -97,24 +100,28 @@ def synthesize(model: DynamiCrafter, image: np.ndarray, prompt: str, *,
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
-    with torch.no_grad():
+    with torch.no_grad(), profiling.clip():
         t0 = mark()
-        ctx_len = model.cfg.clip_text.context_length
-        tokens = torch.tensor([tokenizer(prompt, ctx_len)], device=dev)
-        streams = model.synthesis_streams(
-            text_context=model.encode_text(tokens), cond_images=img[None],
-            cond_frames=diffusion_preprocess(img, (height, width))[None, None],
-            guidance_scale=guidance_scale, cfg_img=cfg_img, fs=fs)
-        t1 = mark()
-        z = model.sample(streams, ddim_steps=ddim_steps,
-                         guidance_scale=guidance_scale, eta=eta,
-                         guidance_rescale=guidance_rescale, cfg_img=cfg_img,
-                         generator=generator)
-        t2 = mark()
-        chunk = 8 if (height * width <= 320 * 512
-                      and z.shape[1] % 8 == 0) else 1
-        video = model.decode(z, frame_chunk=chunk).clamp(-1.0, 1.0)
-        t3 = mark()
+        with profiling.span("conditioning"):
+            ctx_len = model.cfg.clip_text.context_length
+            tokens = torch.tensor([tokenizer(prompt, ctx_len)], device=dev)
+            streams = model.synthesis_streams(
+                text_context=model.encode_text(tokens), cond_images=img[None],
+                cond_frames=diffusion_preprocess(img, (height, width))[
+                    None, None],
+                guidance_scale=guidance_scale, cfg_img=cfg_img, fs=fs)
+            t1 = mark()
+        with profiling.span("sampling"):
+            z = model.sample(streams, ddim_steps=ddim_steps,
+                             guidance_scale=guidance_scale, eta=eta,
+                             guidance_rescale=guidance_rescale,
+                             cfg_img=cfg_img, generator=generator)
+            t2 = mark()
+        with profiling.span("decode"):
+            chunk = 8 if (height * width <= 320 * 512
+                          and z.shape[1] % 8 == 0) else 1
+            video = model.decode(z, frame_chunk=chunk).clamp(-1.0, 1.0)
+            t3 = mark()
     if timings is not None:
         timings.update(conditioning_s=t1 - t0, sampling_s=t2 - t1,
                        step_s=(t2 - t1) / ddim_steps, decode_s=t3 - t2)

@@ -32,8 +32,9 @@ For each part it prints one JSON line: the wall time of the first call
 (`cold_wall_ms`) and the mean of `--calls` later calls (`wall_ms`), both on
 the host clock around torch.cuda.synchronize() with no profiler attached;
 the kernel time per call under torch.profiler (`device_ms`, the sum of every
-kernel's duration); `idle_share` = 1 - device_ms / wall_ms; and the kernel
-time per call by class and for the costliest kernels.
+kernel's duration); and the kernel time per call by class and for the
+costliest kernels. (The benchmark's traced runs give the device's idle
+share, from one profiled slice alone: benchmark/trace.py.)
 
 With --flags (PANDORA_* names, the prefix optional, comma-separated) it
 profiles only the CFG UNet eval, at 320x512 and then on a 72x128 latent
@@ -143,7 +144,6 @@ def profile_part(name: str, fn, calls: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"part": name, "calls": calls, "cold_wall_ms": cold,
             "wall_ms": wall, "device_ms": device,
-            "idle_share": 1.0 - device / wall,
             "kernel_launches_per_call": launches / calls,
             "by_class_ms": dict(sorted(by_class.items(),
                                        key=lambda kv: -kv[1])),

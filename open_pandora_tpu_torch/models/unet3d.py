@@ -70,6 +70,7 @@ from open_pandora_tpu_torch.ops.fused_temporal import (
 from open_pandora_tpu_torch.ops.packed_attention import (
     dual_cross_attention_packed, packed_attention_eligible,
     self_attention_packed)
+from open_pandora_tpu_torch.utils.profiling import span
 
 
 def _fused_route(module: nn.Module, x: torch.Tensor) -> bool:
@@ -585,13 +586,16 @@ class UNetModel(nn.Module):
 
         for layer in block:
             if isinstance(layer, ResBlock):
-                h = call(layer, h, emb, b)
+                with span("unet.resblock"):
+                    h = call(layer, h, emb, b)
             elif isinstance(layer, SpatialTransformer):
-                h = call(layer, h, ctx)
+                with span("unet.spatial"):
+                    h = call(layer, h, ctx)
             elif isinstance(layer, TemporalTransformer):
-                bt, sh, sw, c = h.shape
-                h = call(layer, h.reshape(b, bt // b, sh, sw, c)
-                         ).reshape(h.shape)
+                with span("unet.temporal"):
+                    bt, sh, sw, c = h.shape
+                    h = call(layer, h.reshape(b, bt // b, sh, sw, c)
+                             ).reshape(h.shape)
             else:
                 h = layer(h)
         return h
@@ -599,6 +603,10 @@ class UNetModel(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor,
                 fs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        with span("unet"):
+            return self._forward(x, timesteps, context, fs)
+
+    def _forward(self, x, timesteps, context, fs):
         cfg = self.cfg
         b, t, hh, ww, _ = x.shape
         dtype = self.out[2].weight.dtype

@@ -18,6 +18,7 @@ import torch
 from open_pandora_tpu_torch.core import flags
 from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.norms import group_norm
+from open_pandora_tpu_torch.utils import profiling
 
 SMS = 132                  # streaming multiprocessors of an H100
 _STATS_BLOCKS = SMS        # pass 1: one wave of long-running blocks
@@ -133,4 +134,7 @@ def _gn_cuda(x, weight, bias, *, num_groups, eps, silu):
             kernels.stream_handle(x))
     kernels.check_cuda(err, "pandora_group_norm_silu")
     fused_group_norm_silu.launches += 1
+    if profiling.recording():
+        profiling.count("group_norm_silu", (
+            tuple(x.shape), num_groups, str(x.dtype).removeprefix("torch.")))
     return out

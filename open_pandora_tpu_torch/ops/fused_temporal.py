@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from open_pandora_tpu_torch.ops import kernels
+from open_pandora_tpu_torch.utils import profiling
 
 MAX_T = 32
 MAX_DIM_INNER = 640 * 1280
@@ -167,4 +168,7 @@ def _fused_temporal_cuda(y, wq, wk, wv, wo, bo, ln_w, ln_b, *, heads, eps):
             kernels.DTYPE_CODES[y.dtype], kernels.stream_handle(y))
     kernels.check_cuda(err, "pandora_fused_temporal_attn")
     fused_temporal_self_attention.launches += 1
+    if profiling.recording():
+        profiling.count("fused_temporal", (
+            b, t, hw, c, heads, str(y.dtype).removeprefix("torch.")))
     return o

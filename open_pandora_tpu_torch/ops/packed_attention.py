@@ -22,6 +22,7 @@ import torch
 
 from open_pandora_tpu_torch.core import flags
 from open_pandora_tpu_torch.ops import kernels
+from open_pandora_tpu_torch.utils import profiling
 
 LANES = 128
 MIN_Q = 512
@@ -215,8 +216,12 @@ def _packed_cuda(q, streams, gate, *, heads):
             d ** -0.5, kernels.DTYPE_CODES[q.dtype],
             kernels.stream_handle(q))
     kernels.check_cuda(err, "pandora_packed_attn_fwd")
-    if packed_regime(n, [k.shape[1] for k, _ in streams], heads) == "multi":
+    ms = [k.shape[1] for k, _ in streams]
+    if packed_regime(n, ms, heads) == "multi":
         packed_attention_multi.launches += 1
     else:
         packed_attention.launches += 1
+    if profiling.recording():
+        profiling.count("packed_attention", (
+            b, n, heads, d, tuple(ms), str(q.dtype).removeprefix("torch.")))
     return o
