@@ -212,8 +212,6 @@ KERNELS = {
     "fused_geglu": ("fused_geglu", CSRC + "fused_geglu.cu",
                     "open_pandora_tpu/ops/fused_geglu.py:62"),
 }
-# kernels no model calls, in either package: checked in phase 3 only
-OFF_PATH = {"fused_geglu": "wired into no model, as in the JAX package"}
 KERNEL_KEYS = tuple(key for key, _, _ in KERNELS.values())
 # the kernels each main path runs
 EVAL_KEYS = ("flash", "small", "packed", "fused_temporal", "group_norm")
@@ -1350,6 +1348,22 @@ GEGLU_SHAPES = [(81920, 320), (20480, 640), (5120, 1280), (294912, 320),
 GEGLU_CASES = ([(r, c, torch.bfloat16) for r, c in GEGLU_SHAPES]
                + [(4096, 640, torch.float32)]
                + [(r, c, torch.float32) for r, c in GEGLU_SHAPES])
+# the x each UNet feed-forward site hands row 13 on the bf16 eval route
+# (batched CFG, 16 frames), by the layout the eager chain would chunk it
+# in: spatial (b t, h w, c), native temporal (b, t, h w, c), transposed
+# temporal (b h w, t, c) at 1280 channels; init_attn 512 wide. 320x512 (a
+# 40x64 latent), then 576x1024 (72x128)
+GEGLU_SITES = [
+    ("spatial", (32, 2560, 320)), ("temporal", (2, 16, 2560, 320)),
+    ("spatial", (32, 640, 640)), ("temporal", (2, 16, 640, 640)),
+    ("spatial", (32, 160, 1280)), ("temporal", (320, 16, 1280)),
+    ("spatial", (32, 40, 1280)), ("temporal", (80, 16, 1280)),
+    ("init_attn", (2, 16, 2560, 512)),
+    ("spatial", (32, 9216, 320)), ("temporal", (2, 16, 9216, 320)),
+    ("spatial", (32, 2304, 640)), ("temporal", (2, 16, 2304, 640)),
+    ("spatial", (32, 576, 1280)), ("temporal", (1152, 16, 1280)),
+    ("spatial", (32, 144, 1280)), ("temporal", (288, 16, 1280)),
+    ("init_attn", (2, 16, 9216, 512))]
 
 
 def geglu_ref64(args, rows: int = 65536):
@@ -1361,11 +1375,40 @@ def geglu_ref64(args, rows: int = 65536):
                       for i in range(0, x.shape[0], rows)])
 
 
+def geglu_port_eager(x, g, b, w1, b1, w2, b2, eps=1e-5):
+    """The chain the port's UNet runs off the fused route, x + ff(norm3(x)):
+    `models.layers.LayerNorm` (ops/norms.layer_norm, fp32 statistics), the
+    GEGLU, the Linear and the residual, in chunks of x's leading axis as
+    `FeedForward.chunks` takes them; weights in row 13's layout. Returns
+    the call."""
+    from open_pandora_tpu_torch.models.layers import LayerNorm
+    from open_pandora_tpu_torch.models.unet3d import FeedForward
+    c = x.shape[-1]
+    with torch.device("meta"):
+        ff, norm = FeedForward(c, mult=w2.shape[0] // c), LayerNorm(c, eps)
+    ff.to_empty(device=x.device).to(x.dtype).eval()
+    norm.to_empty(device=x.device).to(x.dtype)
+    with torch.no_grad():
+        for p, v in ((ff.net[0].proj.weight, w1.t()),
+                     (ff.net[0].proj.bias, b1), (ff.net[2].weight, w2.t()),
+                     (ff.net[2].bias, b2), (norm.weight, g),
+                     (norm.bias, b)):
+            p.copy_(v)
+
+    def run():
+        with torch.no_grad():
+            return x + ff(norm(x))
+    return run
+
+
 def check_geglu(summary: dict, device, gen, dtypes=None) -> None:
     """Row 13 at GEGLU_CASES. No single PyTorch call computes it; the
     yardstick is its eager chain (`eager_ms`), in fp32 with TF32 off and,
     for context, on (`eager_tf32_ms`: one TF32 pass). Every fp32 case is
-    held to the ref64 rule too. `dtypes`: only the cases in those."""
+    held to the ref64 rule too. `dtypes`: only the cases in those. With
+    bf16, also every UNet site of GEGLU_SITES against the port's own eager
+    chain (`port_eager_ms`, chunked as the UNet chunks it off the fused
+    route): the A/B that routes row 13 by default."""
     from open_pandora_tpu_torch.ops.fused_geglu import (fused_geglu_ff,
                                                         geglu_ff_plain)
 
@@ -1405,6 +1448,30 @@ def check_geglu(summary: dict, device, gen, dtypes=None) -> None:
                timed=timed,
                ref64_fn=(lambda: geglu_ref64(args)) if fp32 else None)
         del args
+    if dtypes is not None and torch.bfloat16 not in dtypes:
+        return
+    dt = torch.bfloat16
+    for site, shape in GEGLU_SITES:
+        c = shape[-1]
+        inner = 4 * c
+        args = (rnd(*shape, dt=dt, scale=3.0),
+                rnd(c, dt=dt, scale=0.1, shift=1.0), rnd(c, dt=dt, scale=0.05),
+                rnd(c, 2 * inner, dt=dt, scale=c ** -0.5),
+                rnd(2 * inner, dt=dt, scale=0.02),
+                rnd(inner, c, dt=dt, scale=inner ** -0.5),
+                rnd(c, dt=dt, scale=0.02))
+        R = args[0].numel() // c
+        flat = (args[0].reshape(R, c), *args[1:])
+        _check(summary, "fused_geglu",
+               {"shape": [R, c], "inner": inner, "dtype": "bfloat16",
+                "site": site, "x": list(shape)},
+               lambda: fused_geglu_ff(*flat),
+               lambda: geglu_ff_plain(*flat),
+               lambda: geglu_ff_plain(*[t.float() for t in flat]),
+               ((2 * R * c + 12 * c * c + 11 * c) * 2, 24 * R * c * c, dt),
+               timed={"eager_ms": lambda: geglu_eager(*flat),
+                      "port_eager_ms": geglu_port_eager(*args)})
+        del args, flat
 
 
 # -- phase 4: narrow model, card against CPU ---------------------------------
@@ -1803,10 +1870,10 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
     """Kernel launches of one synthesize() call, derived from the model's
     structure and the port's gates on the shapes each site sees: the
     dispatcher's routes (attention_route), on the fused route (bf16 eval on
-    a CUDA device) the packed, fused temporal and GroupNorm gates, and in
-    eval on a CUDA device, in any dtype, the conv gates under the flags in
-    force (core/flags.py): a ResBlock conv the fused conv kernel takes folds
-    its GroupNorm into the kernel.
+    a CUDA device) the packed, fused temporal, GroupNorm and fused GEGLU
+    gates, and in eval on a CUDA device, in any dtype, the conv gates under
+    the flags in force (core/flags.py): a ResBlock conv the fused conv
+    kernel takes folds its GroupNorm into the kernel.
     Batched CFG runs cond and uncond as batch 2 (`batch`). Returns the
     counts per UNet eval ("per_eval"), per VAE encode and decode chunk, and
     for the clip (one key per kernel)."""
@@ -1815,6 +1882,7 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
                                                    conv3x3_fused_eligible)
     from open_pandora_tpu_torch.ops.dual_cross_attention import (
         dual_cross_attention_eligible)
+    from open_pandora_tpu_torch.ops.fused_geglu import geglu_ff_eligible
     from open_pandora_tpu_torch.ops.fused_temporal import (
         fused_temporal_eligible)
     from open_pandora_tpu_torch.ops.packed_attention import (
@@ -1838,6 +1906,10 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
         return ("packed_multi" if packed_regime(n, ms, h) == "multi"
                 else "packed")
 
+    def ff(c):                          # a block's LN3 -> GEGLU -> residual
+        if fused and geglu_ff_eligible(c):
+            per_eval.append("fused_geglu")
+
     def temporal(ds, ch, heads):        # attn1 and attn2 both self-attend
         inner = heads * d
         gn(ch)
@@ -1848,6 +1920,7 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
             else:
                 q = (b * (hz // ds) * (wz // ds), t, heads, d)
                 per_eval.extend([route(q, q)] * 2)
+            ff(inner)
 
     def spatial(ds, ch):
         n, h = (hz // ds) * (wz // ds), ch // d
@@ -1867,6 +1940,7 @@ def predicted_launches(cfg, height: int, width: int, steps: int,
                 per_eval.append("dual_cross")
             else:
                 per_eval.extend(route(q, (b * t, m, h, d)) for m in ms)
+            ff(ch)
 
     def res(c_in, c_out):
         gn(c_in)
@@ -2014,13 +2088,15 @@ def run_slice(device, seed: int, steps: int) -> tuple:
     # (init_attn and the ten 320/640-channel temporal transformers, attn1
     # and attn2), 12 small (the six 1280-channel temporal transformers), no
     # flash, 166 GroupNorm (44 ResBlock, 88 temporal conv, 16 spatial, 17
-    # temporal, 1 out); per clip the VAE adds 1 flash for the encode and 1
-    # per decode chunk, and its GroupNorms (22 per encode, 30 per chunk)
+    # temporal, 1 out), 33 fused GEGLU (every transformer block's
+    # feed-forward: 16 spatial, 17 temporal); per clip the VAE adds 1 flash
+    # for the encode and 1 per decode chunk, and its GroupNorms (22 per
+    # encode, 30 per chunk)
     if (want["per_eval"] != {"flash": 0, "flash_bwd": 0, "small": 12,
                              "small_bwd": 0, "packed": 20, "packed_multi": 0,
                              "dual_cross": 0, "fused_temporal": 22,
                              "group_norm": 166, "conv3x3": 0,
-                             "conv3x3_fused": 0, "fused_geglu": 0}
+                             "conv3x3_fused": 0, "fused_geglu": 33}
             or want["encode"]["flash"] != 1
             or want["decode_chunk"]["flash"] != 1):
         raise AssertionError(f"the routing predicts {want}")
@@ -4286,7 +4362,6 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": sum(p[key] for p in paths.values()),
          "launches_by_path": {n: p[key] for n, p in paths.items()},
-         **({"off_path": OFF_PATH[name]} if name in OFF_PATH else {}),
          **summary[name]}
         for name, (key, src, tpu) in KERNELS.items()]}
     print(card, flush=True)

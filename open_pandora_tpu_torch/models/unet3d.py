@@ -11,7 +11,10 @@ Counterpart of open_pandora_tpu/models/unet3d.py, with its two routes:
     head width does not divide 128); the temporal transformers up to 640
     channels with heads 16, 32 or 64 wide run attn1 and attn2 each as one
     fused temporal kernel on the native stream; the other temporal sites
-    take the small-attention kernel.
+    take the small-attention kernel; every transformer block's LN3 ->
+    GEGLU -> Linear -> residual is one call of the fused GEGLU feed-forward
+    kernel (row 13), a route the JAX package does not take (its Pallas
+    kernel lost to XLA on the TPU; the Hopper kernels win on the H100).
   - unfused (fp32, training, a CPU tensor, or PANDORA_DISABLE_FUSED, as
     the JAX package's route off the TPU or under that flag; the finer
     switches PANDORA_DISABLE_PACKED, _DUALCA, _FUSED_GN and _TNATIVE of
@@ -35,8 +38,9 @@ SpatialTransformer and TemporalTransformer in the backward
 PANDORA_FINE_REMAT also each transformer block's attn1, attn2 and
 feed-forward on its own inside that. Dropout draws from the global RNG,
 whose state the checkpoint saves and restores, so the recomputed masks are
-the forward's. In either mode the feed-forward runs in chunks of its
-leading axis where its intermediate exceeds 256M elements (576x1024).
+the forward's. Off the fused route, in either mode, the feed-forward runs
+in chunks of its leading axis where its intermediate exceeds 256M elements
+(576x1024).
 Module and parameter names follow the reference state dict
 (`input_blocks.1.0.in_layers.0.weight`, `...transformer_blocks.0.attn2.to_k_ip`,
 `temopral_conv` with the reference's spelling); both routes read the same
@@ -65,6 +69,8 @@ from open_pandora_tpu_torch.ops.attention_xla import causal_mask
 from open_pandora_tpu_torch.ops.conv2d import conv3x3_fused_eligible
 from open_pandora_tpu_torch.ops.dual_cross_attention import (
     dual_cross_attention, dual_cross_attention_eligible)
+from open_pandora_tpu_torch.ops.fused_geglu import (fused_geglu_ff,
+                                                    geglu_ff_eligible)
 from open_pandora_tpu_torch.ops.fused_temporal import (
     fused_temporal_eligible, fused_temporal_self_attention)
 from open_pandora_tpu_torch.ops.packed_attention import (
@@ -186,7 +192,9 @@ class FeedForward(nn.Module):
     At 576x1024 the level-0 sites take 4 chunks in training and 8 in the
     CFG eval. With `remat` each chunk is recomputed in the backward on its
     own (the whole feed-forward when it is not chunked), so the backward
-    holds one chunk's intermediate at a time."""
+    holds one chunk's intermediate at a time. The fused route does not
+    call forward: `kernel_weights` gives the fused GEGLU kernel the same
+    parameters."""
 
     CHUNK_THRESHOLD = 256 * 2 ** 20
     CHUNK_TARGET = 128 * 2 ** 20
@@ -195,6 +203,23 @@ class FeedForward(nn.Module):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(dropout),
                                   nn.Linear(dim * mult, dim)])
+        self._packed = None
+
+    def kernel_weights(self, dtype: torch.dtype):
+        """(w1, b1, w2, b2) in the fused GEGLU kernel's layout: w1 (dim,
+        2 inner) with the value columns first (GEGLU's chunk order), w2
+        (inner, dim). Derived once per dtype and device and kept until a
+        parameter changes (its version counter or storage)."""
+        params = (self.net[0].proj.weight, self.net[0].proj.bias,
+                  self.net[2].weight, self.net[2].bias)
+        key = (tuple((p._version, p.data_ptr()) for p in params),
+               params[0].device, dtype)
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                w1, b1, w2, b2 = (p.detach().to(dtype) for p in params)
+                packed = (w1.t().contiguous(), b1, w2.t().contiguous(), b2)
+            self._packed = (key, packed)
+        return self._packed[1]
 
     def _ff(self, x: torch.Tensor) -> torch.Tensor:
         return self.net[2](self.net[1](self.net[0](x)))
@@ -251,6 +276,20 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
 
+    def feed_forward(self, x: torch.Tensor, remat: bool = False
+                     ) -> torch.Tensor:
+        """x + ff(norm3(x)). On the fused route, where the kernel takes the
+        width, one call of the fused GEGLU kernel (LN, up-projection, GEGLU,
+        down-projection, residual) over all rows, unchunked; elsewhere the
+        eager chain, chunked as FeedForward chunks it."""
+        inner = self.ff.net[2].in_features
+        c = x.shape[-1]
+        if _fused_route(self, x) and geglu_ff_eligible(c, inner // c):
+            n3 = self.norm3
+            return fused_geglu_ff(x, n3.weight, n3.bias,
+                                  *self.ff.kernel_weights(x.dtype), eps=n3.eps)
+        return x + self.ff(self.norm3(x), remat=remat)
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 self_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         a1 = self.attn1
@@ -263,7 +302,7 @@ class BasicTransformerBlock(nn.Module):
                     x, attn.to_q.weight, attn.to_k.weight, attn.to_v.weight,
                     attn.to_out[0].weight, attn.to_out[0].bias, norm.weight,
                     norm.bias, heads=attn.heads, eps=norm.eps)
-            return x + self.ff(self.norm3(x))
+            return self.feed_forward(x)
         # PANDORA_FINE_REMAT (training): attn1, attn2 and the feed-forward
         # each recomputed in the backward on its own, inside the block-level
         # checkpoint, so that a block's backward never holds the three
@@ -279,7 +318,7 @@ class BasicTransformerBlock(nn.Module):
 
         x = x + call(self.attn1, self.norm1(x), None, self_mask)
         x = x + call(self.attn2, self.norm2(x), context)
-        return x + self.ff(self.norm3(x), remat=fine)
+        return self.feed_forward(x, remat=fine)
 
 
 class SpatialTransformer(nn.Module):

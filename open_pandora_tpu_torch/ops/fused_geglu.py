@@ -3,10 +3,13 @@ x + FF(LN(x)): the CUDA kernels (csrc/fused_geglu.cu), their launch plan,
 the plain version, and the op that picks between them by device.
 
 Counterpart of open_pandora_tpu/ops/fused_geglu.py (Pallas `_kernel`,
-through `_forward` <- `fused_geglu_ff`). As there, the op is wired into no
-model: BasicTransformerBlock keeps LN3 -> GEGLU -> Linear. Weights are in
-the JAX layout: w1 (c, 2 inner) with the value columns first, w2
-(inner, c). The gradient is the JAX custom VJP's: the backward
+through `_forward` <- `fused_geglu_ff`). Unlike there, the op is on a model
+path: on the fused route (bf16, eval, a CUDA tensor) BasicTransformerBlock
+ends in one call of it in place of LN3 -> GEGLU -> Linear -> residual
+(models/unet3d.py); the Pallas kernel lost to XLA on the TPU, while the
+Hopper kernels beat the eager chain on the H100 at every UNet width.
+Weights are in the JAX layout: w1 (c, 2 inner) with the value columns
+first, w2 (inner, c). The gradient is the JAX custom VJP's: the backward
 differentiates the plain version (`geglu_ff_plain`, the counterpart of
 `geglu_ff_xla`); there is no backward kernel.
 """
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from open_pandora_tpu_torch.ops import kernels
+from open_pandora_tpu_torch.utils import profiling
 
 # the JAX package's VMEM tile model, copied as its gate's rule only: it
 # never tiles the card's kernel
@@ -52,6 +56,7 @@ def _pick_tiles(c: int, inner: int):
     return None
 
 
+@functools.lru_cache(maxsize=None)
 def geglu_ff_eligible(c: int, mult: int = 4) -> bool:
     """The JAX gate (`geglu_ff_eligible`: a tile plan within its VMEM
     model), and what the card's kernels take: c a multiple of 32. The
@@ -202,6 +207,9 @@ def _geglu_cuda(x2, g, b, w1, b1, w2, b2, eps):
             kernels.stream_handle(x2))
     kernels.check_cuda(err, "pandora_fused_geglu")
     fused_geglu_ff.launches += 1
+    if profiling.recording():
+        profiling.count("fused_geglu", (
+            r, c, inner, str(x2.dtype).removeprefix("torch.")))
     return out
 
 
@@ -232,10 +240,23 @@ def fused_geglu_ff(x: torch.Tensor, ln_scale: torch.Tensor,
                    w2: torch.Tensor, b2: torch.Tensor, *,
                    eps: float = 1e-5) -> torch.Tensor:
     """x + FF(LN(x)) over the last axis; leading axes are flattened into
-    rows. w1: (c, 2 inner), value columns first; w2: (inner, c)."""
+    rows (copied only where they are not contiguous). w1: (c, 2 inner),
+    value columns first; w2: (inner, c). Differentiable in the tensors. A
+    CUDA tensor launches the kernels; a CPU tensor takes the plain
+    version."""
     c = x.shape[-1]
     x2 = x.reshape(-1, c)
-    out = _FusedFF.apply(x2, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    ts = (x2, ln_scale, ln_bias, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        out = _FusedFF.apply(*ts, eps)
+    # no gradient wanted (the eval paths): the same forward without the
+    # autograd Function's host cost
+    elif x2.device.type == "cpu":
+        out = geglu_ff_plain(*ts, eps)
+    else:
+        out = _geglu_cuda(*ts, eps)
     return out.reshape(x.shape)
 
 

@@ -131,8 +131,9 @@ def library() -> ctypes.CDLL:
 
 def fused_available(x: torch.Tensor) -> bool:
     """Whether the fused kernels of the JAX package's default bf16 eval
-    route (GroupNorm+SiLU, packed attention, fused temporal attention) serve
-    x: true on a CUDA device. Counterpart of `_fused_available`
+    route (GroupNorm+SiLU, packed attention, fused temporal attention; in
+    the port also the fused GEGLU feed-forward) serve x: true on a CUDA
+    device. Counterpart of `_fused_available`
     (open_pandora_tpu/models/unet3d.py) and `_fused_gn_available`
     (ops/fused_norms.py), which ask for a TPU. Callers read it through this
     module, so a test can monkeypatch it in one place."""

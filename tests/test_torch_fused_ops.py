@@ -33,6 +33,7 @@ from open_pandora_tpu_torch.ops.packed_attention import (
 
 tdca = importlib.import_module(
     "open_pandora_tpu_torch.ops.dual_cross_attention")
+tfg = importlib.import_module("open_pandora_tpu_torch.ops.fused_geglu")
 tfn = importlib.import_module("open_pandora_tpu_torch.ops.fused_norms")
 tft = importlib.import_module("open_pandora_tpu_torch.ops.fused_temporal")
 JD = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -270,10 +271,16 @@ def _spy_unet(monkeypatch):
         tft.check_shapes(y, params, heads)
         return torch.empty_like(y)
 
+    def geglu(x2, *params):
+        calls.append("fused_geglu")
+        tfg.check_shapes(x2, *params[:6])
+        return torch.empty_like(x2)
+
     monkeypatch.setattr(tfn, "_gn_cuda", gn)
     monkeypatch.setattr(tpa, "_packed_cuda", packed)
     monkeypatch.setattr(tdca, "_dual_cuda", dual)
     monkeypatch.setattr(tft, "_fused_temporal_cuda", fused_temporal)
+    monkeypatch.setattr(tfg, "_geglu_cuda", geglu)
     real_attention = tunet.attention
 
     def attention(q, k, v, **kw):
@@ -304,8 +311,9 @@ def _meta_eval(cfg, dtype, height=320, width=512, train=False):
 def test_full_width_eval_routes_as_predicted(monkeypatch):
     """PandoraConfig() at 320x512, bf16 eval on the fused route: launches
     per CFG eval equal chip_smoke's prediction (packed 20, fused temporal
-    22, small attention 12, flash 0, GroupNorm 166; no conv kernel: the
-    conv routes are opt-in)."""
+    22, small attention 12, flash 0, GroupNorm 166, fused GEGLU 33: every
+    transformer block's feed-forward; no conv kernel: the conv routes are
+    opt-in)."""
     calls = _spy_unet(monkeypatch)
     monkeypatch.setattr(kernels, "fused_available", lambda x: True)
     cfg = tcfg.PandoraConfig()
@@ -317,19 +325,24 @@ def test_full_width_eval_routes_as_predicted(monkeypatch):
                            "small_bwd": 0, "packed": 20, "packed_multi": 0,
                            "dual_cross": 0, "fused_temporal": 22,
                            "group_norm": 166, "conv3x3": 0,
-                           "conv3x3_fused": 0, "fused_geglu": 0}
+                           "conv3x3_fused": 0, "fused_geglu": 33}
 
 
-@pytest.mark.parametrize("dtype,train,available", [
-    (F32, False, True),     # the golden fp32 mode
-    (BF16, True, True),     # training
-    (BF16, False, False),   # a tensor the fused kernels do not serve
+@pytest.mark.parametrize("dtype,train,available,disabled", [
+    (F32, False, True, False),     # the golden fp32 mode
+    (BF16, True, True, False),     # training
+    (BF16, False, False, False),   # a tensor the fused kernels do not serve
+    (BF16, False, True, True),     # PANDORA_DISABLE_FUSED
 ])
-def test_fused_kernels_stay_off(monkeypatch, dtype, train, available):
-    """fp32, training mode and tensors off the fused device never reach the
-    new kernels' wrappers; they take the unfused route."""
+def test_fused_kernels_stay_off(monkeypatch, dtype, train, available,
+                                disabled):
+    """fp32, training mode, tensors off the fused device and
+    PANDORA_DISABLE_FUSED never reach the new kernels' wrappers (the fused
+    GEGLU feed-forward's among them); they take the unfused route."""
     calls = _spy_unet(monkeypatch)
     monkeypatch.setattr(kernels, "fused_available", lambda x: available)
+    if disabled:
+        monkeypatch.setenv("PANDORA_DISABLE_FUSED", "1")
     cfg = chip_smoke.narrow_config()
     _meta_eval(cfg.unet, dtype, train=train)
     got = {k: calls.count(k) for k in chip_smoke.KERNEL_KEYS}
@@ -337,7 +350,7 @@ def test_fused_kernels_stay_off(monkeypatch, dtype, train, available):
                                          fused=False)["per_eval"]
     assert got == want
     assert want["group_norm"] == want["packed"] == want["fused_temporal"] \
-        == 0 and want["flash"] > 0 and want["small"] > 0
+        == want["fused_geglu"] == 0 and want["flash"] > 0 and want["small"] > 0
 
 
 def test_wrappers_refuse_other_devices():

@@ -22,14 +22,16 @@ from open_pandora_tpu_torch.ops import kernels
 tfn = importlib.import_module("open_pandora_tpu_torch.ops.fused_norms")
 tft = importlib.import_module("open_pandora_tpu_torch.ops.fused_temporal")
 tpa = importlib.import_module("open_pandora_tpu_torch.ops.packed_attention")
+tfg = importlib.import_module("open_pandora_tpu_torch.ops.fused_geglu")
 BF16 = torch.bfloat16
 
 
 def _trace(monkeypatch, height: int, width: int) -> tuple:
     """(GroupNorm (shape, eps, silu), fused temporal (shape, heads, whether
-    the wrapper's route is the tensor-core kernel)) of one bf16 CFG eval of
-    PandoraConfig()'s UNet on the meta device, on the fused route."""
-    gn, ft = set(), set()
+    the wrapper's route is the tensor-core kernel), fused GEGLU (rows, c))
+    of one bf16 CFG eval of PandoraConfig()'s UNet on the meta device, on
+    the fused route."""
+    gn, ft, ff = set(), set(), set()
 
     def gn_stub(x, w, b, *, num_groups, eps, silu):
         tfn.check_shapes(x, w, b, num_groups)
@@ -42,8 +44,14 @@ def _trace(monkeypatch, height: int, width: int) -> tuple:
                 tft.tensor_core_route(y, params[5], params[6], heads)))
         return torch.empty_like(y)
 
+    def ff_stub(x2, *params):
+        tfg.check_shapes(x2, *params[:6])
+        ff.add(tuple(x2.shape))
+        return torch.empty_like(x2)
+
     monkeypatch.setattr(tfn, "_gn_cuda", gn_stub)
     monkeypatch.setattr(tft, "_fused_temporal_cuda", ft_stub)
+    monkeypatch.setattr(tfg, "_geglu_cuda", ff_stub)
     monkeypatch.setattr(tpa, "_packed_cuda",
                         lambda q, streams, gate, **kw: torch.empty_like(q))
     monkeypatch.setattr(kernels, "fused_available", lambda x: True)
@@ -58,18 +66,22 @@ def _trace(monkeypatch, height: int, width: int) -> tuple:
                       cfg.context_dim, dtype=BF16, device="meta")
     with torch.no_grad():
         model(x, torch.zeros(2, dtype=torch.int64, device="meta"), ctx)
-    return gn, ft
+    return gn, ft, ff
 
 
 @pytest.mark.parametrize("height,width", [(320, 512), (576, 1024)])
 def test_phase3_holds_every_traced_shape(monkeypatch, height, width):
-    gn, ft = _trace(monkeypatch, height, width)
+    gn, ft, ff = _trace(monkeypatch, height, width)
     assert gn == set(chip_smoke.unet_group_norms(height // 8, width // 8))
     assert gn <= set(chip_smoke.group_norm_cases())
     assert {(shape, heads) for shape, heads, _ in ft} <= set(
         chip_smoke.FUSED_TEMPORAL_CASES)
     # every traced row-4 site runs the tensor-core kernel
     assert len(ft) == 3 and all(tc for _, _, tc in ft)
+    # phase 3's A/B times row 13 at every feed-forward site's rows
+    assert ff <= {(math.prod(x[:-1]), x[-1])
+                  for _, x in chip_smoke.GEGLU_SITES}
+    assert len(ff) == 5
 
 
 def test_phase3_reaches_every_route():

@@ -29,6 +29,7 @@ tdca = importlib.import_module(
 tfn = importlib.import_module("open_pandora_tpu_torch.ops.fused_norms")
 tft = importlib.import_module("open_pandora_tpu_torch.ops.fused_temporal")
 tpa = importlib.import_module("open_pandora_tpu_torch.ops.packed_attention")
+tfg = importlib.import_module("open_pandora_tpu_torch.ops.fused_geglu")
 
 FLAG_NAMES = ("PANDORA_DISABLE_FUSED", "PANDORA_DISABLE_FUSED_GN",
               "PANDORA_DISABLE_PACKED", "PANDORA_DISABLE_DUALCA",
@@ -154,6 +155,7 @@ def _torch_temporal_layouts(monkeypatch, shape) -> list:
         return torch.empty_like(y)
     monkeypatch.setattr(tft, "_fused_temporal_cuda", record)
     monkeypatch.setattr(tfn, "_gn_cuda", lambda x, *a, **k: x)
+    monkeypatch.setattr(tfg, "_geglu_cuda", lambda x2, *a: x2)
     with torch.device("meta"):
         model = tunet.TemporalTransformer(shape[-1], 2, 32, 1).to(BF16)
     model.eval()

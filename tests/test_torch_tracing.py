@@ -27,6 +27,7 @@ from open_pandora_tpu_torch.utils import profiling
 tpa = importlib.import_module("open_pandora_tpu_torch.ops.packed_attention")
 tfn = importlib.import_module("open_pandora_tpu_torch.ops.fused_norms")
 tft = importlib.import_module("open_pandora_tpu_torch.ops.fused_temporal")
+tfg = importlib.import_module("open_pandora_tpu_torch.ops.fused_geglu")
 BF16 = torch.bfloat16
 
 
@@ -270,6 +271,31 @@ def test_wrappers_count_beside_their_launches(monkeypatch):
         deltas = run_wrappers(LAUNCHERS, cpu)
     assert profiling.counts() == WANT
     assert deltas == {op: sum(keys.values()) for op, keys in WANT.items()}
+
+
+def test_geglu_wrapper_counts_one_call(monkeypatch):
+    """The fused GEGLU wrapper's count site, reached on the CPU through a
+    library whose entry points do nothing: one recorded call counts once
+    under (rows, c, inner, dtype), beside its `.launches`; unrecorded
+    calls count nothing."""
+    _cpu_launchers(monkeypatch)
+    monkeypatch.setattr(kernels, "multiprocessors", lambda device: 132)
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=gen).to(BF16)
+    c, inner = 64, 256
+    args = (rnd(3, 100, c), rnd(c), rnd(c), rnd(c, 2 * inner),
+            rnd(2 * inner), rnd(inner, c), rnd(c))
+    flat = (args[0].reshape(-1, c), *args[1:])
+    tfg._geglu_cuda(*flat, 1e-5)
+    assert profiling.counts() == {}
+    before = tfg.fused_geglu_ff.launches
+    with cpu_profile():
+        tfg._geglu_cuda(*flat, 1e-5)
+    assert profiling.counts() == {
+        "fused_geglu": {(300, c, inner, "bfloat16"): 1}}
+    assert tfg.fused_geglu_ff.launches == before + 1
 
 
 @pytest.mark.card
