@@ -1,0 +1,7 @@
+"""As cond_s.py, in the SVD-XT cell."""
+
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(__file__),
+                                   "cond_s.py"))["read"]

@@ -1,0 +1,7 @@
+"""As geglu_roofline.i2v.py, in the SVD-XT cell."""
+
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(__file__),
+                                   "geglu_roofline.i2v.py"))["read"]

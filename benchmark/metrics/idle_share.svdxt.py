@@ -1,0 +1,7 @@
+"""As idle_share.i2v.py, in the SVD-XT cell."""
+
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(__file__),
+                                   "idle_share.i2v.py"))["read"]

@@ -37,7 +37,10 @@ Phases, each printing its own lines and raising on failure:
               the flash kernel's k16 tail (D = 72), causal rows with no
               allowed key (N > M) and LLaMA's causal prefill; shapes a gate
               refuses, and packed rows off 16-byte alignment, raise in the
-              wrapper
+              wrapper; SVD-XT's sites at 576x1024x25 (row 13 at its
+              feed-forwards' rows, row 2 at t = 25, and row 4 there beside
+              the route the model takes, which it lost to), each beside
+              the port's eager route (`port_eager_ms`)
   4. model    a narrow DynamiCrafter at 320x512x16f: in fp32, DDIM-2 on the
               card (unfused route) against the same weights and noise on
               the CPU; in bf16, one CFG UNet eval and one 8-frame decode
@@ -66,6 +69,9 @@ Phases, each printing its own lines and raising on failure:
               launches against the routing, eps within 1e-3 max|eps| of
               the default route's, the distance from the default route
               with TF32 allowed beside it, seconds per eval
+  5e. svd     one CFG eval of svd_xt's VideoUNet (SVDConfig()) in bf16 at
+              576x1024x25 (random weights): launch counts against its
+              routing, seconds per eval
   6. train    the full-width PandoraConfig() in bf16 through the trainer
               (train.trainer.run, stage dynamicrafter, synthetic data,
               3 steps at 320x512x16f); seconds per step, peak memory,
@@ -403,6 +409,7 @@ def check_kernels(device, gen) -> dict:
     check_group_norm(summary, device, gen)
     check_conv(summary, device, gen)
     check_geglu(summary, device, gen)
+    check_svd_sites(summary, device, gen)
     check_refusals(device)
     return summary
 
@@ -1474,6 +1481,107 @@ def check_geglu(summary: dict, device, gen, dtypes=None) -> None:
         del args, flat
 
 
+# SVD-XT's new sites on the bf16 eval route at 576x1024x25 with batched CFG
+# (a 72x128 latent, 2 videos of 25 frames): the VideoTransformerBlock's
+# ff_in and ff (native (b, t, h w, c)) at levels 0-2 and the middle; its
+# self-attention over t = 25 at every level
+SVD_GEGLU_SITES = [("video_ff", (2, 25, 9216, 320)),
+                   ("video_ff", (2, 25, 2304, 640)),
+                   ("video_ff", (2, 25, 576, 1280)),
+                   ("video_ff", (2, 25, 144, 1280))]
+SVD_TEMPORAL_SITES = [((2, 25, 9216, 320), 5), ((2, 25, 2304, 640), 10)]
+SVD_SMALL_CASES = [(18432, 25, 25, 5, 64, torch.bfloat16),
+                   (4608, 25, 25, 10, 64, torch.bfloat16),
+                   (1152, 25, 25, 20, 64, torch.bfloat16),
+                   (288, 25, 25, 20, 64, torch.bfloat16)]
+
+
+def svd_self_attention_eager(y, params, heads):
+    """The port's eager route for a VideoTransformerBlock's x +
+    attn1(norm1(x)) over t on y (b, t, s, c): models.svd's transpose to
+    (b s, t, c), LayerNorm, CrossAttention (the dispatcher's small-attention
+    kernel at t = 25) and the residual. Returns the call."""
+    from open_pandora_tpu_torch.models import svd
+
+    c = y.shape[-1]
+    with torch.device("meta"):
+        blk = svd.VideoTransformerBlock(c, heads, c // heads, 1024)
+    blk.to_empty(device=y.device).to(y.dtype).eval()
+    wq, wk, wv, wo, bo, ln_w, ln_b = params
+    a = blk.attn1
+    with torch.no_grad():
+        for p_, v in ((a.to_q.weight, wq), (a.to_k.weight, wk),
+                      (a.to_v.weight, wv), (a.to_out[0].weight, wo),
+                      (a.to_out[0].bias, bo), (blk.norm1.weight, ln_w),
+                      (blk.norm1.bias, ln_b)):
+            p_.copy_(v)
+
+    def run():
+        with torch.no_grad():
+            return blk.self_attention(y)
+    return run
+
+
+def check_svd_sites(summary: dict, device, gen) -> None:
+    """Phase 3's A/B of SVD-XT's new sites against the port's eager route,
+    each routed to an existing kernel only where the kernel wins: row 13 at
+    the temporal feed-forwards' widths (`port_eager_ms`: the eager chain,
+    chunked as the UNet chunks it); row 4's mma.sync route at t = 25, which
+    its gate admits at 320 and 640 channels (`port_eager_ms`: LN,
+    projections, the dispatcher's small-attention kernel, residual: the
+    route models.svd takes, row 4 having lost here); row 2 at t = 25
+    against SDPA."""
+    from open_pandora_tpu_torch.ops.fused_geglu import (fused_geglu_ff,
+                                                        geglu_ff_plain)
+    from open_pandora_tpu_torch.ops.fused_temporal import (
+        fused_temporal_plain, fused_temporal_self_attention)
+    from open_pandora_tpu_torch.ops.small_attention import (
+        small_attention, small_attention_plain)
+
+    dt = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale
+                + shift).to(dt)
+    for site, shape in SVD_GEGLU_SITES:
+        c = shape[-1]
+        inner = 4 * c
+        args = (rnd(*shape, scale=3.0), rnd(c, scale=0.1, shift=1.0),
+                rnd(c, scale=0.05), rnd(c, 2 * inner, scale=c ** -0.5),
+                rnd(2 * inner, scale=0.02), rnd(inner, c, scale=inner ** -0.5),
+                rnd(c, scale=0.02))
+        R = args[0].numel() // c
+        flat = (args[0].reshape(R, c), *args[1:])
+        _check(summary, "fused_geglu",
+               {"shape": [R, c], "inner": inner, "dtype": "bfloat16",
+                "site": site, "x": list(shape)},
+               lambda: fused_geglu_ff(*flat),
+               lambda: geglu_ff_plain(*flat),
+               lambda: geglu_ff_plain(*[t.float() for t in flat]),
+               ((2 * R * c + 12 * c * c + 11 * c) * 2, 24 * R * c * c, dt),
+               timed={"port_eager_ms": geglu_port_eager(*args)})
+        del args, flat
+    for shape, heads in SVD_TEMPORAL_SITES:
+        y, params = fused_temporal_inputs(shape, gen, device)
+        c, t = shape[-1], shape[1]
+        rows = y.numel() // c
+        _check(summary, "fused_temporal_attn",
+               {"shape": list(shape), "heads": heads, "route": "mma",
+                "dtype": "bfloat16", "site": "svd_attn1"},
+               lambda: fused_temporal_self_attention(y, *params, heads=heads),
+               lambda: fused_temporal_plain(y, *params, heads=heads),
+               lambda: fused_temporal_plain(
+                   y.float(), *[p.float() for p in params], heads=heads),
+               ((2 * y.numel() + 4 * c * c + 3 * c) * 2,
+                8 * rows * c * c + 4 * rows * t * c, dt),
+               timed={"port_eager_ms": svd_self_attention_eager(y, params,
+                                                                heads)})
+        del y, params
+    _check_attention(summary, "small_attn_fwd", small_attention,
+                     small_attention_plain, SVD_SMALL_CASES, False, device,
+                     gen)
+
+
 # -- phase 4: narrow model, card against CPU ---------------------------------
 
 def narrow_config():
@@ -2518,6 +2626,63 @@ def run_wide_heads(device, seed: int) -> dict:
         raise AssertionError(f"launches {launches} != predicted {want}")
     if min(launches[k] for k in WIDE_HEAD_KEYS) <= 0:
         raise AssertionError("a kernel of the path never launched")
+    return launches
+
+
+# one bf16 CFG eval of svd_xt's VideoUNet at 576x1024x25 (2 videos of 25
+# frames): row 13 at the 16 transformers' spatial ff, ff_in and ff; row 2
+# at their self-attention over t = 25; rows 3 and 7 at the spatial
+# self-attention of levels 0-2 (the middle's 144 tokens take the plain
+# route); GroupNorm+SiLU at every ResBlock, time stack and transformer
+SVD_EVAL_LAUNCHES = {"small": 16, "packed": 10, "packed_multi": 5,
+                     "group_norm": 105, "fused_geglu": 48}
+
+
+def run_svd(device, seed: int) -> dict:
+    """Phase 5e: one CFG eval of svd_xt's VideoUNet at 576x1024x25, random
+    weights, bf16 (the eval route of the svdxt.i2v cell): launches against
+    SVD_EVAL_LAUNCHES (every other kernel none), seconds an eval."""
+    from open_pandora_tpu_torch.core.config import SVDConfig
+    from open_pandora_tpu_torch.core.init import init_random_
+    from open_pandora_tpu_torch.models.svd import VideoUNet
+
+    u = SVDConfig().video_unet
+    with torch.device("meta"):
+        unet = VideoUNet(u)
+    unet = unet.to(torch.bfloat16).to_empty(device=device).eval()
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    init_random_(unet, gen)
+    T, hz, wz = u.num_frames, 72, 128
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device
+                           ).to(torch.bfloat16)
+    x = rnd(2, T, hz, wz, u.in_channels)
+    ctx = rnd(2, 1, u.context_dim)
+    y = rnd(2, u.adm_in_channels)
+    c_noise = torch.full((2,), 0.25 * float(np.log(10.0)), device=device)
+
+    def run():
+        with torch.no_grad():
+            return unet(x, c_noise, ctx, y)
+    run()                                   # cold
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {k: SVD_EVAL_LAUNCHES.get(k, 0) for k in KERNEL_KEYS}
+    finite = bool(torch.isfinite(out).all())
+    log("svd", json.dumps({
+        "out": list(out.shape), "finite": finite,
+        "std": float(out.float().std()), "eval_s": wall,
+        "launches": launches, "predicted": want}))
+    if out.shape != (2, T, hz, wz, u.out_channels) or not finite:
+        raise AssertionError(f"bad eval: {out.shape}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != predicted {want}")
     return launches
 
 
@@ -4335,6 +4500,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths["conv_fp32"] = run_conv_fp32(device, args.seed)
     paths["wide_heads"] = run_wide_heads(device, args.seed)
+    torch.cuda.empty_cache()
+    paths["svd"] = run_svd(device, args.seed)
+    torch.cuda.empty_cache()
     paths["train"] = run_train(device, args.seed)
     torch.cuda.empty_cache()
     paths["train_fp32"] = run_train(device, args.seed, fp32=True)

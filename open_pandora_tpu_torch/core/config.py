@@ -299,6 +299,106 @@ class PandoraConfig:
     do_alignment: bool = False   # alignment stage: no diffusion model built
     dtype_policy: str = "bf16"   # "bf16" | "fp32" (golden parity mode)
 
+    @property
+    def default_sampling(self) -> Tuple[int, int, int]:
+        """(height, width, steps) of a clip unless the caller sets them:
+        the model's frame size and its DDIM steps."""
+        return self.train.height, self.train.width, self.sampler.steps
+
+
+# ---------------------------------------------------------------------------
+# Stable Video Diffusion (SVD / SVD-XT) image-to-video
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class VideoUNetConfig:
+    """SVD's VideoUNet (sgm/modules/diffusionmodules/video_model.py), the
+    network_config of scripts/sampling/configs/svd_xt.yaml: every ResBlock
+    a VideoResBlock (a (3, 1, 1) temporal ResBlock blended by a learned
+    alpha), every transformer a SpatialVideoTransformer (a
+    VideoTransformerBlock with its own GEGLU `ff_in` after each spatial
+    block), the vector conditioning through `label_emb`."""
+
+    in_channels: int = 8           # 4 latent + 4 concat (the image latent)
+    out_channels: int = 4
+    model_channels: int = 320
+    channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (4, 2, 1)
+    num_head_channels: int = 64
+    transformer_depth: int = 1
+    context_dim: int = 1024
+    # fps_id, motion_bucket_id and cond_aug, each embedded sinusoidally
+    # at a third of the width
+    adm_in_channels: int = 768
+    num_frames: int = 25
+
+
+@dataclass(frozen=True)
+class CLIPImageEmbedConfig(CLIPVisionConfig):
+    """OpenCLIP ViT-H-14 read out as SVD's FrozenOpenCLIPImageEmbedder does:
+    ln_post and proj on the class token, one `output_dim` vector an
+    image."""
+
+    output_dim: int = 1024
+
+
+@dataclass(frozen=True)
+class EDMSamplerConfig:
+    """EulerEDMSampler with EDMDiscretization and LinearPredictionGuider
+    (svd_xt.yaml sampler_config; scripts/sampling/simple_video_sample.py
+    defaults for version svd_xt)."""
+
+    steps: int = 30
+    sigma_min: float = 0.002
+    sigma_max: float = 700.0
+    rho: float = 7.0
+    min_guidance_scale: float = 1.5
+    max_guidance_scale: float = 3.0
+    fps_id: int = 6
+    motion_bucket_id: int = 127
+    cond_aug: float = 0.02
+    decoding_t: int = 14
+
+
+@dataclass(frozen=True)
+class SVDConfig:
+    """Stable Video Diffusion XT image-to-video: VideoUNet, the SD VAE
+    encoder for the concat latent and the temporal VideoDecoder, OpenCLIP
+    ViT-H's pooled image embedding, EDM sampling. `cond_scale_factor` is
+    the concat latent's factor (VideoPredictionEmbedderWithEncoder has no
+    scale_factor key in svd_xt.yaml: 1.0); `vae.scale_factor` divides the
+    sampled latents before decoding. `height` x `width` is the published
+    frame size (simple_video_sample.py)."""
+
+    video_unet: VideoUNetConfig = field(default_factory=VideoUNetConfig)
+    vae: VAEConfig = field(default_factory=VAEConfig)
+    clip_image: CLIPImageEmbedConfig = field(
+        default_factory=CLIPImageEmbedConfig)
+    edm: EDMSamplerConfig = field(default_factory=EDMSamplerConfig)
+    cond_scale_factor: float = 1.0
+    height: int = 576
+    width: int = 1024
+
+    @property
+    def default_sampling(self) -> Tuple[int, int, int]:
+        """(height, width, steps) of a clip unless the caller sets them:
+        the published frame size and the Euler steps."""
+        return self.height, self.width, self.edm.steps
+
+
+# configurations the entry points build by name (`--model`)
+MODEL_PRESETS = {"dynamicrafter": PandoraConfig, "svd_xt": SVDConfig}
+
+
+def model_config(name: str):
+    """The default configuration of a model family by its preset name."""
+    if name not in MODEL_PRESETS:
+        raise KeyError(f"unknown model {name!r}; one of "
+                       f"{sorted(MODEL_PRESETS)}")
+    return MODEL_PRESETS[name]()
+
 
 def param_dtype(policy: str):
     """The torch dtype of the parameters under a dtype policy

@@ -6,9 +6,11 @@ Counterpart of open_pandora_tpu/models/encoders.py. Parameter names follow
 the open_clip state dict (`transformer.resblocks.0.attn.in_proj_weight`,
 `ln_final.weight`, ...) and the Resampler's (`layers.0.0.to_kv.weight`).
 The text tower stops one block before the end (penultimate layer); the
-vision tower returns all 257 tokens without ln_post. Attention goes through
-the dispatcher; at these lengths (77, 257, 513 keys) it takes the plain
-route.
+vision tower returns all 257 tokens without ln_post (DynamiCrafter's
+readout), and `CLIPVisionEncoderPooled` adds the second readout Stable
+Video Diffusion takes from the same tower: ln_post and proj on the class
+token. Attention goes through the dispatcher; at these lengths (77, 257,
+513 keys) it takes the plain route.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from open_pandora_tpu_torch.core.config import (CLIPTextConfig,
+from open_pandora_tpu_torch.core.config import (CLIPImageEmbedConfig,
+                                                CLIPTextConfig,
                                                 CLIPVisionConfig,
                                                 ResamplerConfig)
 from open_pandora_tpu_torch.models.layers import Conv2d, LayerNorm
@@ -168,6 +171,20 @@ class CLIPVisionEncoder(nn.Module):
         for blk in self.transformer.resblocks:
             x = blk(x)
         return x
+
+
+class CLIPVisionEncoderPooled(CLIPVisionEncoder):
+    """The ViT tower with open_clip's pooled readout as well: `pooled`
+    gives ln_post(class token) @ proj, (b, output_dim). `forward` is the
+    tower's 257-token readout, unchanged."""
+
+    def __init__(self, cfg: CLIPImageEmbedConfig):
+        super().__init__(cfg)
+        self.ln_post = LayerNorm(cfg.width)
+        self.proj = nn.Parameter(torch.empty(cfg.width, cfg.output_dim))
+
+    def pooled(self, images: torch.Tensor) -> torch.Tensor:
+        return self.ln_post(self(images)[:, 0]) @ self.proj
 
 
 class PerceiverAttention(nn.Module):

@@ -165,3 +165,21 @@ class LayerNorm(nn.Module):
 def nearest_up2(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsampling of (N, H, W, C)."""
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+class TConv3(nn.Module):
+    """Conv3d with kernel (3, 1, 1) and padding (1, 0, 0) over
+    (b, t, h, w, c), as three shifted matmuls over the t axis."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(ch, ch, 3, 1, 1))
+        self.bias = nn.Parameter(torch.empty(ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = x.shape[1]
+        w = self.weight[:, :, :, 0, 0]
+        xp = F.pad(x, (0, 0, 0, 0, 0, 0, 1, 1))
+        y = (F.linear(xp[:, :t], w[..., 0]) + F.linear(xp[:, 1:t + 1], w[..., 1])
+             + F.linear(xp[:, 2:t + 2], w[..., 2]))
+        return y + self.bias

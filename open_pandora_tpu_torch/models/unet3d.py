@@ -62,7 +62,8 @@ from open_pandora_tpu_torch.core.config import UNet3DConfig
 from open_pandora_tpu_torch.diffusion.schedule import timestep_embedding
 from open_pandora_tpu_torch.models.layers import (Conv2d, GroupNorm32,
                                                   LayerNorm, PointwiseConv,
-                                                  SConv3x3, nearest_up2)
+                                                  SConv3x3, TConv3,
+                                                  nearest_up2)
 from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.attention import attention
 from open_pandora_tpu_torch.ops.attention_xla import causal_mask
@@ -249,6 +250,20 @@ class FeedForward(nn.Module):
         return torch.cat([ff(part) for part in x.chunk(chunks)], dim=0)
 
 
+def geglu_residual(module: nn.Module, x: torch.Tensor, norm: LayerNorm,
+                   ff: FeedForward, remat: bool = False) -> torch.Tensor:
+    """x + ff(norm(x)). On `module`'s fused route, where the kernel takes
+    the width, one call of the fused GEGLU kernel (LN, up-projection,
+    GEGLU, down-projection, residual) over all rows, unchunked; elsewhere
+    the eager chain, chunked as FeedForward chunks it."""
+    inner = ff.net[2].in_features
+    c = x.shape[-1]
+    if _fused_route(module, x) and geglu_ff_eligible(c, inner // c):
+        return fused_geglu_ff(x, norm.weight, norm.bias,
+                              *ff.kernel_weights(x.dtype), eps=norm.eps)
+    return x + ff(norm(x), remat=remat)
+
+
 class BasicTransformerBlock(nn.Module):
     """pre-LN self-attention -> cross-attention -> GEGLU feed-forward. With
     no context, attn2 self-attends on norm2(x). With `fused_temporal` (the
@@ -278,17 +293,8 @@ class BasicTransformerBlock(nn.Module):
 
     def feed_forward(self, x: torch.Tensor, remat: bool = False
                      ) -> torch.Tensor:
-        """x + ff(norm3(x)). On the fused route, where the kernel takes the
-        width, one call of the fused GEGLU kernel (LN, up-projection, GEGLU,
-        down-projection, residual) over all rows, unchunked; elsewhere the
-        eager chain, chunked as FeedForward chunks it."""
-        inner = self.ff.net[2].in_features
-        c = x.shape[-1]
-        if _fused_route(self, x) and geglu_ff_eligible(c, inner // c):
-            n3 = self.norm3
-            return fused_geglu_ff(x, n3.weight, n3.bias,
-                                  *self.ff.kernel_weights(x.dtype), eps=n3.eps)
-        return x + self.ff(self.norm3(x), remat=remat)
+        """x + ff(norm3(x)) (`geglu_residual`)."""
+        return geglu_residual(self, x, self.norm3, self.ff, remat)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 self_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -405,24 +411,6 @@ class TemporalTransformer(nn.Module):
         if native:
             return x + y.reshape(b, t, h, w, c)
         return x + y.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
-
-
-class TConv3(nn.Module):
-    """Conv3d with kernel (3, 1, 1) and padding (1, 0, 0) over
-    (b, t, h, w, c), as three shifted matmuls over the t axis."""
-
-    def __init__(self, ch: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(ch, ch, 3, 1, 1))
-        self.bias = nn.Parameter(torch.empty(ch))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        t = x.shape[1]
-        w = self.weight[:, :, :, 0, 0]
-        xp = F.pad(x, (0, 0, 0, 0, 0, 0, 1, 1))
-        y = (F.linear(xp[:, :t], w[..., 0]) + F.linear(xp[:, 1:t + 1], w[..., 1])
-             + F.linear(xp[:, 2:t + 2], w[..., 2]))
-        return y + self.bias
 
 
 class TemporalConvBlock(nn.Module):

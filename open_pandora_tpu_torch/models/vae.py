@@ -1,4 +1,5 @@
-"""SD 2D autoencoder (AutoencoderKL), channel-last.
+"""SD 2D autoencoder (AutoencoderKL), channel-last, and Stable Video
+Diffusion's temporal decoder (VideoDecoder).
 
 Counterpart of open_pandora_tpu/models/vae.py. Module and parameter names
 follow the reference state dict (`encoder.down.0.block.1.norm1.weight`,
@@ -7,6 +8,14 @@ bf16 eval on a CUDA device every GroupNorm takes the GroupNorm+SiLU kernel.
 The mid-block attention is one head of width C through the attention
 dispatcher (the flash kernel at h*w >= 512 on a CUDA device; its width
 fails the packed kernel's head gate, as in the JAX package).
+
+`VideoDecoder` is SVD's decoder (generative-models
+sgm/modules/autoencoding/temporal_ae.py, time_mode "conv-only", the
+default svd_xt.yaml keeps): the Decoder with every ResnetBlock followed by
+a time-stack ResBlock of (3, 1, 1) convolutions (GroupNorm eps 1e-5 over
+the chunk's frames and pixels together) blended in by a learned alpha that
+weights the temporal branch, and conv_out followed by a (3, 1, 1) Conv3d.
+Each decode chunk is one video of its own frames.
 """
 
 from __future__ import annotations
@@ -20,8 +29,10 @@ from torch import nn
 
 from open_pandora_tpu_torch.core.config import VAEConfig
 from open_pandora_tpu_torch.models.layers import (Conv2d, GroupNorm32,
-                                                  PointwiseConv, nearest_up2)
+                                                  PointwiseConv, TConv3,
+                                                  nearest_up2)
 from open_pandora_tpu_torch.ops.attention import attention
+from open_pandora_tpu_torch.utils.profiling import span
 
 EPS = 1e-6
 
@@ -249,3 +260,118 @@ def decode_video(vae: AutoencoderKL, z: torch.Tensor, *,
         frames = vae.decode(z[:, s:e].reshape(b * (e - s), h, w, zc))
         out.append(frames.reshape(b, e - s, *frames.shape[1:]))
     return torch.cat(out, dim=1)
+
+
+# -- Stable Video Diffusion's temporal decoder --------------------------------
+
+
+class TimeStackResBlock(nn.Module):
+    """sgm's ResBlock with dims 3 and kernel (3, 1, 1) over (b, t, h, w, c):
+    GN+SiLU+TConv3, plus the per-frame embedding where `emb_dim` is given
+    (the UNet's; the decoder's has none), GN+SiLU+TConv3, identity skip.
+    Its GroupNorms (eps 1e-5) take their statistics over the frames and
+    pixels of each video together."""
+
+    def __init__(self, ch: int, emb_dim: Optional[int] = None):
+        super().__init__()
+        self.in_layers = nn.ModuleList([GroupNorm32(ch, 1e-5), nn.SiLU(),
+                                        TConv3(ch)])
+        if emb_dim is not None:
+            self.emb_layers = nn.ModuleList([nn.SiLU(),
+                                             nn.Linear(emb_dim, ch)])
+        self.out_layers = nn.ModuleList([GroupNorm32(ch, 1e-5), nn.SiLU(),
+                                         nn.Dropout(0.0), TConv3(ch)])
+
+    def forward(self, x: torch.Tensor,
+                emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (b, t, h, w, c); emb (b, t, emb_dim) or None."""
+        h = self.in_layers[2](self.in_layers[0](x, silu=True))
+        if emb is not None:
+            h = h + self.emb_layers[1](F.silu(emb))[:, :, None, None, :]
+        h = self.out_layers[3](self.out_layers[0](h, silu=True))
+        return x + h
+
+
+def alpha_blend(mix_factor: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """alpha a + (1 - alpha) b with alpha = sigmoid(mix_factor), each
+    weight computed in float32 and cast to a's dtype (sgm's AlphaBlender)."""
+    alpha = torch.sigmoid(mix_factor.float())
+    return alpha.to(a.dtype) * a + (1.0 - alpha).to(a.dtype) * b
+
+
+class VideoResnetBlock(ResnetBlock):
+    """The decoder's ResnetBlock, then its time stack over each video of
+    `t` frames, blended as alpha temporal + (1 - alpha) spatial."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch)
+        self.time_stack = TimeStackResBlock(out_ch)
+        self.mix_factor = nn.Parameter(torch.empty(1))
+
+    def forward(self, x: torch.Tensor, t: int) -> torch.Tensor:
+        h = super().forward(x)
+        hv = h.reshape(-1, t, *h.shape[1:])
+        return alpha_blend(self.mix_factor, self.time_stack(hv),
+                           hv).reshape(h.shape)
+
+
+class AE3DConv(Conv2d):
+    """The decoder's conv_out: a 3x3 conv, then a (3, 1, 1) Conv3d over each
+    video of `t` frames (`time_mix_conv`)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, 3, padding=1)
+        self.time_mix_conv = TConv3(out_ch)
+
+    def forward(self, x: torch.Tensor, t: int) -> torch.Tensor:
+        y = super().forward(x)
+        return self.time_mix_conv(y.reshape(-1, t, *y.shape[1:])
+                                  ).reshape(y.shape)
+
+
+class VideoDecoder(Decoder):
+    """The Decoder's layout and parameter names, with VideoResnetBlocks and
+    an AE3DConv conv_out; `forward(z, t)` decodes (n t, h, w, z) frames as
+    n videos of t frames."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__(cfg)
+
+        def video(blk: ResnetBlock) -> VideoResnetBlock:
+            return VideoResnetBlock(blk.conv1.in_channels,
+                                    blk.conv1.out_channels)
+
+        self.mid.block_1 = video(self.mid.block_1)
+        self.mid.block_2 = video(self.mid.block_2)
+        for level in self.up:
+            level.block = nn.ModuleList(video(b) for b in level.block)
+        self.conv_out = AE3DConv(self.conv_out.in_channels,
+                                 self.conv_out.out_channels)
+
+    def forward(self, z: torch.Tensor, t: int) -> torch.Tensor:
+        h = self.mid.block_1(self.conv_in(z), t)
+        h = self.mid.block_2(self.mid.attn_1(h), t)
+        for level in reversed(self.up):
+            for blk in level.block:
+                h = blk(h, t)
+            if hasattr(level, "upsample"):
+                h = level.upsample(h)
+        return self.conv_out(self.norm_out(h, silu=True), t)
+
+
+def decode_video_chunks(decoder: VideoDecoder, z: torch.Tensor, *,
+                        scale_factor: float, chunk: int) -> torch.Tensor:
+    """latents (b, T, h', w', z) -> video (b, T, 8h', 8w', 3): z / scale,
+    the (b T) frames decoded `chunk` at a time, each chunk one video of its
+    own frames (sgm's decode_first_stage with en_and_decode_n_samples_a_time
+    = chunk)."""
+    b, t = z.shape[:2]
+    flat = (z / scale_factor).reshape(b * t, *z.shape[2:])
+    out = []
+    for s in range(0, b * t, chunk):
+        part = flat[s:s + chunk]
+        with span("vae.video_decode", frames=part.shape[0]):
+            out.append(decoder(part, part.shape[0]))
+    y = torch.cat(out)
+    return y.reshape(b, t, *y.shape[1:])

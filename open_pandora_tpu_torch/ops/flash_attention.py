@@ -17,6 +17,7 @@ import torch
 
 from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.attention_xla import NEG_INF, causal_mask
+from open_pandora_tpu_torch.utils import profiling
 
 BWD_MAX_HEAD_DIM = 128
 # the masked score as the kernels hold it (kMaskValue, an fp32 value), so
@@ -170,6 +171,9 @@ def _flash_cuda(q, k, v, *, causal, sm_scale):
             kernels.DTYPE_CODES[q.dtype], kernels.stream_handle(q))
     kernels.check_cuda(err, "pandora_flash_fwd")
     flash_attention.launches += 1
+    if profiling.recording():
+        profiling.count("flash_attention", (
+            B, N, M, H, D, bool(causal), str(q.dtype).removeprefix("torch.")))
     return o, lse
 
 

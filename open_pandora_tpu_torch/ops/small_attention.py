@@ -19,6 +19,7 @@ import torch
 
 from open_pandora_tpu_torch.ops import kernels
 from open_pandora_tpu_torch.ops.flash_attention import _up
+from open_pandora_tpu_torch.utils import profiling
 
 LANES = 128
 MAX_SEQ = 32
@@ -136,6 +137,9 @@ def _small_cuda(q, k, v, *, sm_scale):
             kernels.stream_handle(q))
     kernels.check_cuda(err, "pandora_small_attn_fwd")
     small_attention.launches += 1
+    if profiling.recording():
+        profiling.count("small_attention", (
+            B, N, k.shape[1], H, D, str(q.dtype).removeprefix("torch.")))
     return o
 
 

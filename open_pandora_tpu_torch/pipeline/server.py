@@ -7,13 +7,16 @@ guidance, eta, fs and seed): one page, `GET /health`, and `POST
 
     python -m open_pandora_tpu_torch.pipeline.server --port 10041 \\
         [--ckpt step_<n>/ or model.ckpt] [--tokenizer DIR] [--debug]
-        [--device cuda]
+        [--device cuda] [--model svd_xt]
 
 The HTTP layer is model-free: `make_server` takes the `generate_fn` that
 answers a request, and `chatwm_generate_fn` makes one from a session
 (built by pipeline/cli.build_chat), one request at a time on the one
-card. Decoding the upload needs PIL and encoding the mp4 OpenCV, each
-imported by that function's call.
+card; with `--model svd_xt`, `i2v_generate_fn` answers each upload with
+one SVD-XT clip through eval.inference.synthesize (the actions are not
+read: the model takes no text; `ddim_steps` sets its Euler steps, `seed`
+its draws). Decoding the upload needs PIL and encoding the mp4 OpenCV,
+each imported by that function's call.
 """
 
 from __future__ import annotations
@@ -150,6 +153,58 @@ def chatwm_generate_fn(chat, fps: int = 8) -> Callable:
     return generate
 
 
+def i2v_generate_fn(model, *, height: int, width: int,
+                    fps: int = 8) -> Callable:
+    """The server's generate_fn for an image-to-video model (SVD-XT): one
+    clip of the upload at (height, width), answered as the mp4's bytes; a
+    lock serves one request at a time."""
+    import torch
+
+    from open_pandora_tpu_torch.eval.inference import synthesize
+    from open_pandora_tpu_torch.pipeline.cli import decode_image
+    from open_pandora_tpu_torch.utils.video_io import (frames_to_uint8,
+                                                       write_video)
+
+    lock = threading.Lock()
+
+    def generate(image_bytes: bytes, actions, *,
+                 ddim_steps: Optional[int] = None, seed: int = 123,
+                 **_unused) -> bytes:
+        with lock:
+            video = synthesize(
+                model, decode_image(io.BytesIO(image_bytes)), "",
+                height=height, width=width, ddim_steps=ddim_steps,
+                generator=torch.Generator(device=model.device).manual_seed(
+                    seed))
+            with tempfile.TemporaryDirectory() as td:
+                path = write_video(os.path.join(td, "out.mp4"),
+                                   frames_to_uint8(video[0]), fps=fps)
+                with open(path, "rb") as f:
+                    return f.read()
+
+    return generate
+
+
+def build_i2v(args) -> Callable:
+    """The generate_fn of `--model svd_xt`: the model of its preset at its
+    frame size (or, with `--debug`, of the tiny configuration), random
+    weights seeded 0 unless `--ckpt` names a checkpoint
+    (eval.inference.load_checkpoint)."""
+    import torch
+
+    from open_pandora_tpu_torch.eval import inference
+
+    cfg, dtype, height, width, _ = inference.model_settings(args.model,
+                                                            args.debug)
+    device = torch.device(args.device)
+    model = inference.build_model(
+        cfg, device=device, dtype=dtype,
+        generator=torch.Generator(device=device).manual_seed(0))
+    if args.ckpt:
+        inference.load_checkpoint(model, args.ckpt)
+    return i2v_generate_fn(model, height=height, width=width)
+
+
 def main(argv=None):
     import argparse
 
@@ -164,13 +219,19 @@ def main(argv=None):
     p.add_argument("--debug", action="store_true",
                    help="tiny random-weight config (smoke mode)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--model", default="chatwm", choices=["chatwm", "svd_xt"],
+                   help="ChatWM rounds, or one SVD-XT clip a request")
     args = p.parse_args(argv)
 
-    base = cli.build_parser().parse_args(["--image", "", "--action", "x"])
-    for k in ("ckpt", "tokenizer", "quantize_llm", "debug", "device"):
-        setattr(base, k, getattr(args, k))
-    srv = make_server(chatwm_generate_fn(cli.build_chat(base)),
-                      port=args.port)
+    if args.model == "svd_xt":
+        fn = build_i2v(args)
+    else:
+        base = cli.build_parser().parse_args(["--image", "", "--action",
+                                              "x"])
+        for k in ("ckpt", "tokenizer", "quantize_llm", "debug", "device"):
+            setattr(base, k, getattr(args, k))
+        fn = chatwm_generate_fn(cli.build_chat(base))
+    srv = make_server(fn, port=args.port)
     print(f"[server] listening on :{args.port}", flush=True)
     srv.serve_forever()
 

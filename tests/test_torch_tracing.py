@@ -298,6 +298,36 @@ def test_geglu_wrapper_counts_one_call(monkeypatch):
     assert tfg.fused_geglu_ff.launches == before + 1
 
 
+@pytest.mark.parametrize("op", ["small_attention", "flash_attention"])
+def test_attention_wrappers_count_one_call(monkeypatch, op):
+    """The small-attention and flash wrappers' count sites (the SVD-XT
+    cell's temporal self-attention and VAE attention), reached on the CPU
+    through a library whose entry points do nothing: one recorded call
+    counts once under (batch, n, m, heads, d[, causal], dtype), beside its
+    `.launches`; unrecorded calls count nothing."""
+    mod = importlib.import_module(f"open_pandora_tpu_torch.ops.{op}")
+    _cpu_launchers(monkeypatch)
+    monkeypatch.setattr(kernels, "check_qkv", lambda *a: None)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(6, n, 2, 64, generator=gen).to(BF16)
+               for n in (25, 25, 25))
+    if op == "small_attention":
+        def call():
+            return mod._small_cuda(q, k, v, sm_scale=0.125)
+        key = (6, 25, 25, 2, 64, "bfloat16")
+    else:
+        def call():
+            return mod._flash_cuda(q, k, v, causal=False, sm_scale=None)
+        key = (6, 25, 25, 2, 64, False, "bfloat16")
+    call()
+    assert profiling.counts() == {}
+    before = getattr(mod, op).launches
+    with cpu_profile():
+        call()
+    assert profiling.counts() == {op: {key: 1}}
+    assert getattr(mod, op).launches == before + 1
+
+
 @pytest.mark.card
 def test_card_cuda_only_profile_records(card):
     """Under the benchmark's kind of profile (CUDA activity alone) the flag
